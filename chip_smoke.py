@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `rust_eth_kzg_tpu_torch/csrc/` and runs,
-printing one JSON line per phase:
+Builds the port's CUDA kernels from `rust_eth_kzg_tpu_torch/csrc/` (and its
+native pairing library from `csrc/host/`) and runs, printing one JSON line
+per phase:
   1. build           nvcc time, registers and spills of every kernel;
   2. kernels         each kernel against its plain torch version on the card,
                      exactly (integer arithmetic: tolerance 0);
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
-                     main path: compute_cells_and_kzg_proofs_batch on the
-                     zero blob and three seeded random blobs (zero-blob,
+                     prove path: compute_cells_and_kzg_proofs_batch on the
+                     zero blob and seven seeded random blobs (zero-blob,
                      systematic-cell and repeatability checks);
-  4. launches        the kernel launch counts of that one main-path call,
-                     reset just before it and read just after (each > 0);
-  5. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
+  4. recover         recover_cells_and_kzg_proofs(_batch) from 64 of 128
+                     cells, one blob and the 8 blobs with a seeded pattern
+                     each, against the prover's bytes; too few cells and a
+                     corrupted cell must raise RecoveryError;
+  5. verify          verify_cell_kzg_proof_batch accepts the port's own
+                     proofs (128 cells of one blob; 1,024 cells of 8 blobs)
+                     and rejects four tampered batches with the right error;
+  6. launches        the kernel launch counts of one call of each path
+                     (prove B=8, recover B=8, verify 1,024 cells), each reset
+                     just before its call and read just after: every kernel
+                     a path runs must have launched on it;
+  7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py);
-  6. timing          compute_cells_and_kzg_proofs for 1 and 8 blobs.
+  8. timing          prove B=1 and B=8, verify 128 and 1,024 cells, recover
+                     B=1 and B=8: median of 5 after a warm-up, device busy
+                     time, host share and launches per call.
 Then the per-kernel summary line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check exits nonzero.
 Needs one CUDA card; imports nothing of JAX.
@@ -154,7 +166,7 @@ def phase_kernels(torch, K, F, C, device):
     FR, FP = F.FR, F.FP
     results = {}
 
-    def compare(name, kernel, plain, nbytes, imad, reps=20, main=True):
+    def compare(name, kernel, plain, nbytes, imad, reps=20, main=True, record=None):
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -169,7 +181,7 @@ def phase_kernels(torch, K, F, C, device):
             ms = cuda_ms(kernel, reps)
             plain_ms = cuda_ms(plain, 2)
             b_ms, b_by = bound(imad, nbytes)
-            results[name] = {
+            results[record or name] = {
                 "ok": True, "max_abs_err": err, "kernel_ms": ms, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
@@ -236,6 +248,25 @@ def phase_kernels(torch, K, F, C, device):
             6 * 48 * 128, 128 * 9 * mont_mul_imad(12))
     compare("g1_double", lambda: K.g1_double(pi), lambda: tuple(C.double_plain(pi)), 0, 0, main=False)
 
+    # g1_add_mixed: the subgroup-check ladder of a 128-cell verify, 256 lanes
+    # (commitments and proofs, padded), timed; and 73,728 lanes (timed as
+    # "wide"). Both with identity q lanes, identity p lanes and p == q lanes.
+    for n, record in ((256, None), (73728, "g1_add_mixed_wide")):
+        p, _ = _random_points(C, F, n, SEED + 14, device)
+        q = C.batch_normalize(_random_points(C, F, n, SEED + 15, device)[0])
+        lane = torch.arange(n, device=device)
+        p = C.select(lane % 17 == 1, C.identity((n,), device), p)
+        pa = C.batch_normalize(p)
+        same = (lane % 16 == 5) & ~pa.inf
+        qinf = lane % 16 == 9
+        q = C.G1Affine(F.select(same, pa.x, q.x), F.select(same, pa.y, q.y), qinf)
+        live = int((~qinf).sum().item())
+        compare("g1_add_mixed", lambda: K.g1_add_mixed(p, q.x, q.y, q.inf),
+                lambda: tuple(C.add_mixed_plain(p, q)), (5 * 48 + 1) * n + 3 * 48 * n,
+                live * 13 * mont_mul_imad(12), record=record)
+        check(bool((~C.is_identity(p)).sum() < n) and bool(same.any()) and bool(qinf.any()),
+              "g1_add_mixed inputs hold identity p, p == q and identity q lanes")
+
     # g1_add_affine: the chord level of the window sums of one blob,
     # [12, 9, 1, 128, 128], identity lanes where a digit is 0
     n = 9 * 128 * 128
@@ -282,7 +313,7 @@ def _random_blob(seed, n=4096):
 
 
 def phase_mainnet_setup(torch, api, K, device):
-    """Init, then one main-path call whose launch counts are returned."""
+    """Init, then one call of the prove path whose launch counts are returned."""
     from rust_eth_kzg_tpu_torch.utils import bls_host as B
 
     t0 = time.perf_counter()
@@ -290,7 +321,7 @@ def phase_mainnet_setup(torch, api, K, device):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     table_bytes = ctx.prover.tables.nbytes + ctx.prover.commit_tables.nbytes
-    blobs = [bytes(131072)] + [_random_blob(SEED + i) for i in range(3)]
+    blobs = [bytes(131072)] + [_random_blob(SEED + i) for i in range(1, 8)]
     t1 = time.perf_counter()
     K.reset_launches()
     out = ctx.compute_cells_and_kzg_proofs_batch(blobs)
@@ -304,19 +335,146 @@ def phase_mainnet_setup(torch, api, K, device):
     for blob, (cells, proofs) in zip(blobs, out):
         check(b"".join(cells[:64]) == blob, "systematic cells: the first 64 cells are the blob")
         check(len(set(proofs)) == 128 or blob == blobs[0], "distinct proofs for a random blob")
-    again = ctx.compute_cells_and_kzg_proofs_batch(blobs)
-    check(again == out, "a repeated call gives identical bytes")
+    again = ctx.compute_cells_and_kzg_proofs_batch(blobs[:4])
+    check(again == out[:4], "a repeated call gives identical bytes")
     commitment = ctx.blob_to_kzg_commitment(blobs[0])
     check(commitment == B.g1_compress(None), "zero blob commits to the identity")
     emit({
-        "phase": "mainnet_setup", "init_s": init_s, "prove_b4_s": prove_s,
+        "phase": "mainnet_setup", "init_s": init_s, "prove_b8_s": prove_s,
         "table_bytes": table_bytes,
         "fk20_table_bytes": ctx.prover.tables.nbytes,
         "commit_table_bytes": ctx.prover.commit_tables.nbytes,
         "cuda_memory_allocated": torch.cuda.memory_allocated(),
         "seconds": time.perf_counter() - t0,
     })
-    return ctx, launches
+    return ctx, launches, blobs, out
+
+
+def expect_raises(cls, what, fn, *args):
+    try:
+        fn(*args)
+    except cls as exc:
+        return str(exc)
+    raise CheckFailed(f"{what}: expected {cls.__name__}")
+
+
+def _kept(rng, n_keep, n=128):
+    return sorted(int(i) for i in rng.choice(n, size=n_keep, replace=False))
+
+
+def _bump_first_scalar(cell):
+    """The cell with its first scalar replaced by the next canonical value."""
+    from rust_eth_kzg_tpu_torch.constants import R_SCALAR
+
+    v = (int.from_bytes(cell[:32], "big") + 1) % R_SCALAR
+    return v.to_bytes(32, "big") + cell[32:]
+
+
+def phase_recover(torch, K, ctx, out):
+    """Recovery from 64 of 128 cells: B=1 and the gated B=8 call."""
+    import numpy as np
+
+    from rust_eth_kzg_tpu_torch.errors import RecoveryError
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 200)
+    cells1, proofs1 = out[1]
+    idx = _kept(rng, 64)
+    got = ctx.recover_cells_and_kzg_proofs(idx, [cells1[i] for i in idx])
+    check(got == (cells1, proofs1), "recover B=1: cells and proofs equal the prover's bytes")
+    batches = []
+    for cells, _ in out:
+        idx = _kept(rng, 64)
+        batches.append((idx, [cells[i] for i in idx]))
+    check(len({tuple(i) for i, _ in batches}) == len(out), "a different erasure pattern for each blob")
+    K.reset_launches()
+    got = ctx.recover_cells_and_kzg_proofs_batch(batches)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(got == out, "recover B=8: cells and proofs equal the prover's bytes")
+    idx = _kept(rng, 63)
+    too_few = expect_raises(RecoveryError, "63 cells", ctx.recover_cells_and_kzg_proofs,
+                            idx, [cells1[i] for i in idx])
+    idx = _kept(rng, 80)
+    bad = [cells1[i] for i in idx]
+    bad[7] = _bump_first_scalar(bad[7])
+    corrupt = expect_raises(RecoveryError, "a corrupted cell", ctx.recover_cells_and_kzg_proofs, idx, bad)
+    emit({"phase": "recover", "b1_ok": True, "b8_ok": True, "too_few_cells": too_few,
+          "corrupted_cell": corrupt, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _not_in_subgroup_bytes(seed):
+    """Compressed bytes of a curve point outside the prime-order subgroup."""
+    import random
+
+    from rust_eth_kzg_tpu_torch.constants import P
+    from rust_eth_kzg_tpu_torch.utils import bls_host as B
+
+    rnd = random.Random(seed)
+    while True:
+        x = rnd.randrange(P)
+        y = B.fp_sqrt(x * x * x + 4)
+        if y is not None and not B.g1_in_subgroup((x, y)):
+            return B.g1_compress((x, y))
+
+
+def _off_curve_bytes(seed):
+    """Compressed bytes of an x with no point on the curve."""
+    import random
+
+    from rust_eth_kzg_tpu_torch.constants import P
+    from rust_eth_kzg_tpu_torch.utils import bls_host as B
+
+    rnd = random.Random(seed)
+    while True:
+        x = rnd.randrange(P)
+        if B.fp_sqrt(x * x * x + 4) is None:
+            data = bytearray(x.to_bytes(48, "big"))
+            data[0] |= 0x80
+            return bytes(data)
+
+
+def verify_batch(out, comms, nblobs):
+    """Every cell of the first `nblobs` blobs as one verify batch."""
+    commitments = [comms[b] for b in range(nblobs) for _ in range(128)]
+    indices = list(range(128)) * nblobs
+    cells = [c for b in range(nblobs) for c in out[b][0]]
+    proofs = [p for b in range(nblobs) for p in out[b][1]]
+    return commitments, indices, cells, proofs
+
+
+def phase_verify(torch, K, ctx, blobs, out):
+    """Accept the port's proofs (128 and 1,024 cells; the latter gated) and
+    reject four tampered 128-cell batches."""
+    from rust_eth_kzg_tpu_torch.errors import InvalidProofError, SerializationError
+
+    t0 = time.perf_counter()
+    comms = [ctx.blob_to_kzg_commitment(b) for b in blobs]
+    one = verify_batch(out[1:], comms[1:], 1)
+    ctx.verify_cell_kzg_proof_batch(*one)
+    eight = verify_batch(out, comms, 8)
+    K.reset_launches()
+    ctx.verify_cell_kzg_proof_batch(*eight)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    c, i, cells, proofs = one
+    swapped = list(proofs)
+    swapped[5], swapped[6] = swapped[6], swapped[5]
+    errors = {"swapped_proof": expect_raises(InvalidProofError, "swapped proofs",
+                                             ctx.verify_cell_kzg_proof_batch, c, i, cells, swapped)}
+    changed = list(cells)
+    changed[9] = _bump_first_scalar(changed[9])
+    errors["changed_cell"] = expect_raises(InvalidProofError, "a changed cell",
+                                           ctx.verify_cell_kzg_proof_batch, c, i, changed, proofs)
+    for name, bad_point, pos in (("proof_not_in_subgroup", _not_in_subgroup_bytes(SEED), 3),
+                                 ("proof_off_curve", _off_curve_bytes(SEED), 4)):
+        bad = list(proofs)
+        bad[pos] = bad_point
+        errors[name] = expect_raises(SerializationError, name, ctx.verify_cell_kzg_proof_batch, c, i, cells, bad)
+    emit({"phase": "verify", "accepted": [128, 1024], "errors": errors,
+          "seconds": time.perf_counter() - t0})
+    return launches, comms
 
 
 def phase_mainnet_oracle(torch, api, C, device):
@@ -366,67 +524,95 @@ def phase_mainnet_oracle(torch, api, C, device):
           "cells_checked": 128, "commitment_checked": True, "seconds": time.perf_counter() - t0})
 
 
-def phase_timing(torch, K, ctx, card):
-    t0 = time.perf_counter()
-    blob = _random_blob(SEED + 7)
-    out = {}
-    for b in (1, 8):
-        blobs = [_random_blob(SEED + 10 + i) for i in range(b)]
-        ctx.compute_cells_and_kzg_proofs_batch(blobs)  # warm-up
-        torch.cuda.synchronize()
-        host, dev = [], []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            h0 = time.perf_counter()
-            start.record()
-            ctx.compute_cells_and_kzg_proofs_batch(blobs)
-            stop.record()
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - h0) * 1e3)
-            dev.append(start.elapsed_time(stop))
-        out[f"B{b}"] = {"median_ms": statistics.median(host), "cuda_event_ms": statistics.median(dev),
-                        "blobs_per_s": b / (statistics.median(host) / 1e3), "runs_ms": host}
-    # launches and kernel time of one single-blob prove
+KERNEL_FUNCTIONS = {
+    "g1_add_affine": "g1_add_affine_kernel", "g1_add_mixed": "g1_add_mixed_kernel",
+    "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
+    "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
+}
+
+
+def measure_call(torch, K, fn, reps=5):
+    """One call timed: a warm-up, then `reps` runs by the host clock (each
+    closed by a synchronize) and CUDA events; then one run under
+    torch.profiler for device busy time (self time of every device event)
+    and device ms by kernel; then one run for the launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    K.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ctx.compute_cells_and_kzg_proofs(blob)
+    fn()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        fn()
+        stop.record()
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+        host.append((time.perf_counter() - h0) * 1e3)
+        dev.append(start.elapsed_time(stop))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     per_kernel = dict.fromkeys(K.KERNELS, 0.0)
-    fn_names = {
-        "g1_add_affine": "g1_add_affine_kernel", "g1_add": "g1_add_kernel",
-        "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
-        "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
-    }
-    device_ms = 0.0  # self time only: an aten op's device time also counts its kernels
+    busy = 0.0
     for ev in prof.key_averages():
         self_us = getattr(ev, "self_device_time_total", None)
         if self_us is None:
             self_us = getattr(ev, "self_cuda_time_total", 0.0)
         if not self_us:
             continue
-        device_ms += self_us / 1e3
-        for name, fn in fn_names.items():
-            if fn in ev.key:
+        busy += self_us / 1e3
+        for name, kfn in KERNEL_FUNCTIONS.items():
+            if kfn in ev.key:
                 per_kernel[name] += self_us / 1e3
                 break
-    per_kernel["all_device_ms"] = device_ms
-    emit({"phase": "timing", "card": card, "prove": out, "launches_per_prove": launches,
-          "kernel_ms_per_prove": per_kernel, "stages_ms": _stage_times(torch, ctx, blob),
+    K.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    median = statistics.median(host)
+    return {
+        "median_ms": median, "runs_ms": host, "cuda_event_ms": statistics.median(dev),
+        "device_busy_ms": busy, "host_share_ms": median - busy,
+        "kernel_device_ms": per_kernel, "launches": dict(K.LAUNCHES),
+    }
+
+
+def phase_timing(torch, K, ctx, card, out, comms):
+    import numpy as np
+
+    t0 = time.perf_counter()
+    calls = {}
+    for b in (1, 8):
+        pblobs = [_random_blob(SEED + 10 + i) for i in range(b)]
+        r = measure_call(torch, K, lambda: ctx.compute_cells_and_kzg_proofs_batch(pblobs))
+        r["blobs_per_s"] = b / (r["median_ms"] / 1e3)
+        calls[f"prove_B{b}"] = r
+    for first, nblobs in ((1, 1), (0, 8)):
+        args = verify_batch(out[first:], comms[first:], nblobs)
+        calls[f"verify_{128 * nblobs}"] = measure_call(torch, K, lambda: ctx.verify_cell_kzg_proof_batch(*args))
+    rng = np.random.default_rng(SEED + 300)
+    for b in (1, 8):
+        src = out[1:2] if b == 1 else out
+        batches = []
+        for cells, _ in src:
+            idx = _kept(rng, 64)
+            batches.append((idx, [cells[i] for i in idx]))
+        calls[f"recover_B{b}"] = measure_call(torch, K, lambda: ctx.recover_cells_and_kzg_proofs_batch(batches))
+    emit({"phase": "timing", "card": card, "calls": calls,
+          "stages_ms": _stage_times(torch, ctx, _random_blob(SEED + 7)),
+          "verify_stages_ms": {
+              "verify_128": _verify_stage_times(torch, ctx, verify_batch(out[1:], comms[1:], 1)),
+              "verify_1024": _verify_stage_times(torch, ctx, verify_batch(out, comms, 8)),
+          },
+          "recover_stages_ms": _recover_stage_times(torch, ctx, batches),
           "seconds": time.perf_counter() - t0})
-    return launches, per_kernel
+    return calls
 
 
-def _stage_times(torch, ctx, blob):
-    """Host-clock ms of each prover stage of one single-blob prove, each
-    stage closed by a synchronize (the h-poly stage holds the 128 MSMs and
-    the 128-point inverse G1-FFT; the proofs stage the forward G1-FFT)."""
-    from rust_eth_kzg_tpu_torch.ops import curve as C
-
-    prover = ctx.prover
+def _timed_stages(torch):
+    """stage(name, fn, *args): runs fn between two synchronizes and keeps its
+    host-clock ms under `name` in the returned dict."""
     stages = {}
 
     def stage(name, fn, *args):
@@ -436,6 +622,46 @@ def _stage_times(torch, ctx, blob):
         torch.cuda.synchronize()
         stages[name] = (time.perf_counter() - t) * 1e3
         return result
+
+    return stages, stage
+
+
+def _verify_stage_times(torch, ctx, args):
+    """Host-clock ms of each stage of one verify: the API's host checks and
+    Fiat-Shamir, the verifier's host preparation and upload, the device
+    part, and the fetch, flag checks and pairing."""
+    from rust_eth_kzg_tpu_torch.models.fk20_verifier import verify_device
+
+    stages, stage = _timed_stages(torch)
+    vargs = stage("host_checks_fiat_shamir", ctx.verify_inputs, *args)
+    inputs = stage("prepare_upload", ctx.verifier.prepare, *vargs)
+    outputs = stage("device", verify_device, ctx.verifier, *inputs.tensors)
+    stage("fetch_flags_pairing", ctx.verifier.check, inputs, outputs)
+    return stages
+
+
+def _recover_stage_times(torch, ctx, batches):
+    """Host-clock ms of each stage of one recover, through the functions that
+    `recover_cells_and_kzg_proofs_batch` composes: input checks and erasure
+    layout, upload, the Reed-Solomon decode, the re-prove, and the fetch with
+    the degree check and the encoding of cells and proofs."""
+    stages, stage = _timed_stages(torch)
+    e_std, z_small = stage("host_checks_layout", ctx.recovery_arrays, batches)
+    e, z = stage("upload", ctx.upload, e_std, z_small)
+    poly, ok = stage("rs_decode", ctx.rs.recover_polynomial_coefficient, e, z)
+    proofs, cells = stage("reprove", ctx.prover.prove_from_poly, poly)
+    stage("fetch_encode", ctx.recovery_outputs, ok, proofs, cells)
+    return stages
+
+
+def _stage_times(torch, ctx, blob):
+    """Host-clock ms of each prover stage of one single-blob prove, each
+    stage closed by a synchronize (the h-poly stage holds the 128 MSMs and
+    the 128-point inverse G1-FFT; the proofs stage the forward G1-FFT)."""
+    from rust_eth_kzg_tpu_torch.ops import curve as C
+
+    prover = ctx.prover
+    stages, stage = _timed_stages(torch)
 
     data = stage("to_mont", ctx._data, [blob])
     poly = stage("blob_to_poly", prover.blob_to_poly, data)
@@ -466,27 +692,57 @@ def main() -> int:
     card = f"{smi}; torch {torch.__version__}; CUDA {torch.version.cuda}"
     try:
         build = phase_build(K)
+        native_s = time.perf_counter()
+        from rust_eth_kzg_tpu_torch.utils import native
+
+        native.build()
+        emit({"phase": "build_native", "library": os.path.relpath(native.library_path(), REPO),
+              "seconds": time.perf_counter() - native_s})
         results = phase_kernels(torch, K, F, C, device)
-        ctx, launches = phase_mainnet_setup(torch, api, K, device)
-        emit({"phase": "launches", "call": "compute_cells_and_kzg_proofs_batch, 4 blobs",
-              "launches": launches})
-        check(all(launches[k] > 0 for k in K.KERNELS), f"every kernel ran on the main path: {launches}")
+        ctx, prove_launches, blobs, out = phase_mainnet_setup(torch, api, K, device)
+        recover_launches = phase_recover(torch, K, ctx, out)
+        verify_launches, comms = phase_verify(torch, K, ctx, blobs, out)
+        paths = {
+            "prove": ("compute_cells_and_kzg_proofs_batch, 8 blobs", prove_launches),
+            "recover": ("recover_cells_and_kzg_proofs_batch, 8 blobs, 64 of 128 cells each", recover_launches),
+            "verify": ("verify_cell_kzg_proof_batch, 1,024 cells of 8 blobs", verify_launches),
+        }
+        emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
+        # every kernel each path runs launched on it; g1_add_mixed runs only
+        # in the verifier's subgroup check
+        expected = {
+            "prove": set(K.KERNELS) - {"g1_add_mixed"},
+            "recover": set(K.KERNELS) - {"g1_add_mixed"},
+            "verify": set(K.KERNELS),
+        }
+        for path, (_, counts) in paths.items():
+            missing = sorted(k for k in expected[path] if counts[k] <= 0)
+            check(not missing, f"{path} path launched no {missing}: {counts}")
+        check(all(any(n[k] > 0 for _, n in paths.values()) for k in K.KERNELS),
+              "every kernel launched on some path")
         phase_mainnet_oracle(torch, api, C, device)
-        per_prove, _ = phase_timing(torch, K, ctx, card)
+        calls = phase_timing(torch, K, ctx, card, out, comms)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
     summary = []
     for name, (src, _, replaces) in K.KERNELS.items():
         r = results[name]
-        summary.append({
+        by_path = {k: n[name] for k, (_, n) in paths.items()}
+        row = {
             "name": name, "route": "cuda", "source": f"rust_eth_kzg_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name], "launches_per_prove": per_prove[name],
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_per_call": {k: v["launches"][name] for k, v in calls.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "ok": r["ok"], "registers": build[name]["registers"],
             "spill_stores": build[name]["spill_stores"], "spill_loads": build[name]["spill_loads"],
-        })
+        }
+        wide = results.get(f"{name}_wide")
+        if wide:
+            row.update({"wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+                        "wide_bound_ms": wide["bound_ms"], "wide_bound_by": wide["bound_by"]})
+        summary.append(row)
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

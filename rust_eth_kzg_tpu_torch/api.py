@@ -1,9 +1,12 @@
-"""Public API of the port: `DASContext` for the EIP-7594 prover path.
+"""Public API of the port: `DASContext` for EIP-7594 (PeerDAS).
 
-Function names, validation and error semantics mirror
-rust_eth_kzg_tpu/api.py (and through it the reference's eip7594 crate):
-raw bytes in, raw bytes out. `device` picks the card; it defaults to "cuda"
-and the context never falls back to the CPU on its own.
+The prover calls (`compute_cells_and_kzg_proofs(_batch)`, `compute_cells`,
+`blob_to_kzg_commitment`), erasure recovery
+(`recover_cells_and_kzg_proofs(_batch)`) and cell-proof batch verification
+(`verify_cell_kzg_proof_batch`). Function names, validation order and error
+semantics mirror rust_eth_kzg_tpu/api.py (and through it the reference's
+eip7594 crate): raw bytes in, raw bytes out. `device` picks the card; it
+defaults to "cuda" and the context never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -12,11 +15,15 @@ import numpy as np
 import torch
 
 from . import constants as CONST
-from .errors import SerializationError
-from .models.fk20 import FK20Config, FK20Prover
+from .errors import RecoveryError, SerializationError, VerifierError
+from .models import cosets
+from .models.fk20 import FK20Config, FK20Prover, recover_and_prove
+from .models.fk20_verifier import FK20Verifier
+from .models.reed_solomon import ReedSolomon
 from .ops import curve as C
 from .ops import field as F
 from .utils import bls_host as bls
+from .utils import fiat_shamir as fs
 from .utils import serialization as ser
 from .utils.trusted_setup import TrustedSetup
 
@@ -48,12 +55,40 @@ def proofs_bytes(aff: C.G1Affine, b: int, k: int) -> list[tuple[bytes, ...]]:
     return [tuple(bls.g1_compress(pts[i * k + j]) for j in range(k)) for i in range(b)]
 
 
+def recover_inputs(config: FK20Config, cell_indices, cells):
+    """Validate one blob's recovery input (the reference's recovery.rs
+    order) -> (codeword std limbs [8, ext] in natural order, zero at the
+    erasures; the missing block indices)."""
+    num_cells = config.num_proofs
+    if len(cell_indices) != len(cells):
+        raise RecoveryError(
+            f"number of cell indices ({len(cell_indices)}) does not match number of cells ({len(cells)})"
+        )
+    for idx in cell_indices:
+        if idx >= num_cells:
+            raise RecoveryError(f"cell index {idx} out of range (max {num_cells})")
+    if any(b >= a for a, b in zip(cell_indices[1:], cell_indices)):
+        raise RecoveryError("cell indices must be unique and sorted")
+    min_needed = num_cells // config.expansion
+    if len(cell_indices) < min_needed:
+        raise RecoveryError(f"not enough cells to reconstruct: got {len(cells)}, need at least {min_needed}")
+    if len(cell_indices) > num_cells:
+        raise RecoveryError(f"too many cells: got {len(cells)}, max {num_cells}")
+    cell_limbs = ser.deserialize_cells_batch(cells, config.coset_size * CONST.BYTES_PER_FIELD_ELEMENT)
+    indices_normal, flat = cosets.recover_evaluations_in_domain_order(config.ext_size, list(cell_indices), cell_limbs)
+    present = set(indices_normal)
+    missing = [i for i in range(num_cells) if i not in present]
+    return np.ascontiguousarray(flat.T), missing
+
+
 class DASContext:
-    """EIP-7594 prover context (cells, proofs, commitments).
+    """EIP-7594 context: cells, proofs and commitments; recovery; cell-proof
+    batch verification.
 
     `use_precomp` is the window width of both fixed-base MSM tables at
     mainnet geometry; `config` sets the geometry and both windows instead
-    (tests use small ones). Passing both is an error.
+    (tests use small ones). Passing both is an error. Verification needs the
+    setup's G2 points; a setup without them serves the other calls.
     """
 
     def __init__(
@@ -77,16 +112,33 @@ class DASContext:
             commit_window=use_precomp,
         )
         self.prover = FK20Prover(setup.g1_monomial, self.config, self.device)
+        self._init_recovery_and_verifier(setup)
 
     @classmethod
     def from_prover(cls, prover: FK20Prover) -> "DASContext":
         """A context around an existing prover, e.g. one whose tables were
-        carried over from the JAX package (utils/convert.py)."""
+        carried over from the JAX package (utils/convert.py); it has no G2
+        points, so it cannot verify."""
         ctx = cls.__new__(cls)
         ctx.device = prover.device
         ctx.config = prover.config
         ctx.prover = prover
+        ctx._init_recovery_and_verifier(None)
         return ctx
+
+    def _init_recovery_and_verifier(self, setup: TrustedSetup | None) -> None:
+        cfg = self.config
+        self.rs = ReedSolomon(cfg.poly_len, cfg.expansion, cfg.num_proofs, self.device)
+        self.verifier = None
+        if setup is not None and len(setup.g2_monomial) > cfg.coset_size:
+            self.verifier = FK20Verifier(
+                g1s=setup.g1_monomial[: len(setup.g2_monomial)],
+                g2s=setup.g2_monomial,
+                coset_size=cfg.coset_size,
+                num_points_to_open=cfg.ext_size,
+                num_cosets=cfg.num_proofs,
+                device=self.device,
+            )
 
     def _data(self, blobs: list[bytes]) -> torch.Tensor:
         """Blobs -> Montgomery scalars [8, B, poly_len] on the device."""
@@ -105,10 +157,96 @@ class DASContext:
         if not blobs:
             raise SerializationError("batch contains no blobs")
         proofs_aff, cells = self.prover.prove_from_data(self._data(blobs))
+        return self._cells_and_proofs(proofs_aff, cells)
+
+    def _cells_and_proofs(self, proofs_aff: C.G1Affine, cells: torch.Tensor):
+        """Fetch: cells [8, B, K, M] (Montgomery) and proofs [B, K] -> list of
+        B (cells, proofs) tuples of bytes."""
         cells_std = F.from_mont(FR, cells).cpu().numpy()
-        b, k = len(blobs), self.config.num_proofs
+        b, k = cells.shape[1], self.config.num_proofs
         return list(zip(cells_bytes_from_std(cells_std), proofs_bytes(proofs_aff, b, k)))
 
     def compute_cells(self, blob: bytes):
         cells = self.prover.extend_from_data(self._data([blob]))
         return cells_bytes_from_std(F.from_mont(FR, cells).cpu().numpy())[0]
+
+    def recover_cells_and_kzg_proofs(self, cell_indices: list[int], cells: list[bytes]):
+        return self.recover_cells_and_kzg_proofs_batch([(cell_indices, cells)])[0]
+
+    def recover_cells_and_kzg_proofs_batch(self, batches):
+        """[(cell_indices, cells), ...] -> [(cells, proofs), ...]: every blob
+        recovered from at least half of its cells (each with its own erasure
+        pattern) and re-proved, all blobs in one device pass. Raises
+        RecoveryError naming every blob that fails the degree check."""
+        e_std, z_small = self.recovery_arrays(batches)
+        ok, proofs_aff, cells = recover_and_prove(self.rs, self.prover, *self.upload(e_std, z_small))
+        return self.recovery_outputs(ok, proofs_aff, cells)
+
+    def upload(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+
+    def recovery_outputs(self, ok: torch.Tensor, proofs_aff: C.G1Affine, cells: torch.Tensor):
+        """The fetch of a recovery: every blob's degree check, then its cells
+        and proofs as bytes."""
+        ok = ok.cpu().numpy()
+        if not ok.all():
+            bad = [i for i, v in enumerate(ok) if not v]
+            raise RecoveryError(f"recovered polynomial has invalid degree for batch entries {bad} (corrupt input cells?)")
+        return self._cells_and_proofs(proofs_aff, cells)
+
+    def recovery_arrays(self, batches):
+        """The host part of a recovery: each blob's checks and erasure layout
+        -> (codewords [8, B, ext], small vanishing polynomials [8, B, nz]),
+        standard-form numpy limbs."""
+        if not batches:
+            raise SerializationError("batch contains no recovery inputs")
+        e_stds, z_stds = [], []
+        for cell_indices, cells in batches:
+            e_std, missing = recover_inputs(self.config, cell_indices, cells)
+            e_stds.append(e_std)
+            z_stds.append(self.rs.construct_vanishing_poly_small(missing))
+        return np.stack(e_stds, axis=1), np.stack(z_stds, axis=1)
+
+    def verify_cell_kzg_proof_batch(self, commitments: list[bytes], cell_indices: list[int],
+                                    cells: list[bytes], proofs: list[bytes]) -> None:
+        """Returns None if every cell proof verifies; raises VerifierError on
+        malformed lengths or indices, SerializationError on malformed bytes,
+        InvalidProofError when the batch fails the pairing check."""
+        args = self.verify_inputs(commitments, cell_indices, cells, proofs)
+        if args is not None:
+            self.verifier.verify(*args)
+
+    def verify_inputs(self, commitments, cell_indices, cells, proofs):
+        """The host checks of a verify, before any point is decompressed:
+        commitments deduplicated by bytes in first-seen order, the length and
+        index checks, the cell bytes and the Fiat-Shamir challenge over the
+        raw bytes. Returns the arguments of `FK20Verifier.verify`, or None for
+        an empty batch."""
+        if self.verifier is None:
+            raise ValueError("this context's trusted setup has no G2 points: it cannot verify")
+        cfg = self.config
+        commitments = [bytes(c) for c in commitments]
+        proofs = [bytes(p) for p in proofs]
+        unique, indices, seen = [], [], {}
+        for c in commitments:
+            if c not in seen:
+                seen[c] = len(unique)
+                unique.append(c)
+            indices.append(seen[c])
+        if not len(indices) == len(cell_indices) == len(cells) == len(proofs):
+            raise VerifierError(
+                "batch verification inputs must have the same length: "
+                f"{len(indices)} commitments, {len(cell_indices)} cell indices, "
+                f"{len(cells)} cells, {len(proofs)} proofs"
+            )
+        for ci in cell_indices:
+            if ci >= cfg.num_proofs:
+                raise VerifierError(f"cell index {ci} out of range (max {cfg.num_proofs})")
+        if not cells:
+            return None
+        cells = [bytes(c) for c in cells]
+        cell_limbs = ser.deserialize_cells_batch(cells, cfg.coset_size * CONST.BYTES_PER_FIELD_ELEMENT)
+        r = fs.compute_cell_batch_challenge(
+            cfg.poly_len, cfg.coset_size, unique, indices, list(cell_indices), cells, proofs
+        )
+        return unique, indices, list(cell_indices), cell_limbs, proofs, r

@@ -115,6 +115,41 @@ __device__ __forceinline__ void g1_double(G1& r, const G1& p) {
   copy<L>(r.z, z3);
 }
 
+// Complete mixed addition (RCB Algorithm 8, a = 0): q is affine (Z = 1), 13
+// products (curve.add_mixed_values). p may be the identity and may equal q.
+// A lane whose q is the identity returns p (the caller branches on its mask).
+__device__ __forceinline__ void g1_add_mixed(G1& r, const G1& p, const uint32_t* x2,
+                                             const uint32_t* y2) {
+  uint32_t t0[L], t1[L], t3[L], t4[L], ty[L], u[L], v[L];
+  fp_mul(t0, p.x, x2);
+  fp_mul(t1, p.y, y2);
+  fp_add(u, p.x, p.y);
+  fp_add(v, x2, y2);
+  fp_mul(t3, u, v);
+  fp_sub(t3, t3, t0);
+  fp_sub(t3, t3, t1);  // x1 y2 + x2 y1
+  fp_mul(t4, y2, p.z);
+  fp_add(t4, t4, p.y);  // y1 + y2 z1
+  fp_mul(ty, x2, p.z);
+  fp_add(ty, ty, p.x);  // x1 + x2 z1
+  fp_add(u, t0, t0);
+  fp_add(t0, u, t0);    // 3 x1 x2
+  fp_mul_b3(v, p.z);    // 3b z1
+  fp_add(u, t1, v);     // z3 = y1 y2 + 3b z1
+  fp_sub(t1, t1, v);    // y1 y2 - 3b z1
+  fp_mul_b3(ty, ty);    // 3b (x1 + x2 z1)
+  fp_mul(v, t3, t1);
+  uint32_t w[L];
+  fp_mul(w, t4, ty);
+  fp_sub(r.x, v, w);
+  fp_mul(v, t1, u);
+  fp_mul(w, ty, t0);
+  fp_add(r.y, v, w);
+  fp_mul(v, u, t4);
+  fp_mul(w, t0, t3);
+  fp_add(r.z, v, w);
+}
+
 // Affine + affine -> projective by the incomplete chord formula
 // (curve.add_affine_values): u = y2 - y1, v = x2 - x1, Z3 = v^3,
 // X3 = v (u^2 - v^2 (x1 + x2)), Y3 = u (x1 v^2 - (u^2 - v^2 (x1 + x2))) - y1 v^3.

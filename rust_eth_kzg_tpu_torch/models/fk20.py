@@ -169,3 +169,19 @@ class FK20Prover:
 
     def commit_from_data(self, data: torch.Tensor) -> C.G1:
         return self.commit_from_poly(self.blob_to_poly(data))
+
+
+def recover_and_prove(rs, prover: FK20Prover, e_std: torch.Tensor, z_small: torch.Tensor):
+    """Recovery and the re-prove as one device pass (the counterpart of the
+    JAX package's fused `_recover_prove_packed`).
+
+    e_std: [8, B, ext] standard-form codewords in natural order, zero at the
+    erasures; z_small: [8, B, nz] standard-form coefficients of each blob's
+    small vanishing polynomial, spread on the device at stride num_blocks.
+    Returns (ok [B], proofs G1Affine [B, num_proofs], cells [8, B,
+    num_proofs, coset] Montgomery); a blob whose ok is False failed the
+    degree check and its outputs are meaningless.
+    """
+    poly, ok = rs.recover_polynomial_coefficient(e_std, z_small)
+    proofs, cells = prover.prove_from_poly(poly)
+    return ok, proofs, cells

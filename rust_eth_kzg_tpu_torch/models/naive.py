@@ -11,13 +11,18 @@ from ..constants import R_SCALAR
 from ..utils import bls_host as bls
 
 
-def insecure_setup(num_g1: int, tau: int = 1234567):
-    """G1 monomial SRS [tau^i] G with known tau (test-only); returns (points, tau)."""
+def insecure_setup(num_g1: int, num_g2: int, tau: int = 1234567):
+    """Monomial SRS [tau^i] G1 and [tau^i] G2 with known tau (test-only);
+    returns (g1 points, g2 points, tau)."""
     g1s, acc = [], 1
     for _ in range(num_g1):
         g1s.append(bls.g1_mul(bls.G1_GEN, acc))
         acc = acc * tau % R_SCALAR
-    return g1s, tau
+    g2s, acc = [], 1
+    for _ in range(num_g2):
+        g2s.append(bls.g2_mul(bls.G2_GEN, acc))
+        acc = acc * tau % R_SCALAR
+    return g1s, g2s, tau
 
 
 def poly_eval_host(coeffs: list[int], x: int) -> int:

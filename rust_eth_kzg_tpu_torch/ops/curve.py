@@ -5,12 +5,13 @@ each coordinate fully reduced; the identity is (0 : R : 0), i.e. (0 : 1 : 0).
 Affine point sets (`G1Affine`) carry an identity mask, with (0, 0) in the
 identity lanes.
 
-`add`, `double` and `add_affine` launch the CUDA kernels of `ops/kernels.py`
-for CUDA tensors and run the plain versions below (`add_plain`,
-`double_plain`, `add_affine_plain`: the same formulas as plain field ops) for
-CPU tensors. The formulas are those of rust_eth_kzg_tpu/ops/curve.py
-(Renes-Costello-Batina 2015 with a = 0, and the incomplete chord addition),
-so the canonical projective coordinates agree with the JAX package's.
+`add`, `double`, `add_mixed` and `add_affine` launch the CUDA kernels of
+`ops/kernels.py` for CUDA tensors and run the plain versions below
+(`add_plain`, `double_plain`, `add_mixed_plain`, `add_affine_plain`: the same
+formulas as plain field ops) for CPU tensors. The formulas are those of
+rust_eth_kzg_tpu/ops/curve.py (Renes-Costello-Batina 2015 with a = 0, and the
+incomplete chord addition), so the canonical projective coordinates agree
+with the JAX package's.
 """
 
 from __future__ import annotations
@@ -127,6 +128,30 @@ def double_plain(p: G1) -> G1:
     return G1(x3, y3, z3)
 
 
+def add_mixed_plain(p: G1, q: G1Affine) -> G1:
+    """Complete mixed addition (RCB Algorithm 8, a = 0): q has Z = 1; lanes
+    where `q.inf` is set return p unchanged."""
+    x1, y1, z1 = p
+    x2, y2 = q.x, q.y
+    b3 = FP.mont_const(B3, x1.device).reshape(-1, *([1] * (x1.dim() - 1)))
+    s1, s2 = _adds((x1, y1), (x2, y2))
+    t0, t1, m3, yz, xz, t2_b = _muls((x1, x2), (y1, y2), (s1, s2), (y2, z1), (x2, z1), (z1, b3))
+    (d3,) = _subs((m3, t0))
+    (t3,) = _subs((d3, t1))  # x1 y2 + x2 y1
+    t4, ty = _adds((yz, y1), (xz, x1))  # y1 + y2 z1, x1 + x2 z1
+    (t0_2,) = _adds((t0, t0))
+    (t0_3,) = _adds((t0_2, t0))
+    (z3,) = _adds((t1, t2_b))
+    (t1_n,) = _subs((t1, t2_b))
+    (ty_b,) = _muls((ty, b3))
+    a1, a2, b1, b2, c1, c2 = _muls(
+        (t3, t1_n), (t4, ty_b), (t1_n, z3), (ty_b, t0_3), (z3, t4), (t0_3, t3)
+    )
+    (x3,) = _subs((a1, a2))
+    y3, z3 = _adds((b1, b2), (c1, c2))
+    return select(q.inf, p, G1(x3, y3, z3))
+
+
 def add_affine_plain(a: G1Affine, b: G1Affine) -> G1:
     """Affine + affine -> projective chord addition; an identity operand passes
     the other through; equal non-identity inputs give (0 : 0 : 0)."""
@@ -162,6 +187,12 @@ def double(p: G1) -> G1:
     if p.x.device.type == "cpu":
         return double_plain(p)
     return G1(*K.g1_double(p))
+
+
+def add_mixed(p: G1, q: G1Affine) -> G1:
+    if p.x.device.type == "cpu":
+        return add_mixed_plain(p, q)
+    return G1(*K.g1_add_mixed(p, q.x, q.y, q.inf))
 
 
 def add_affine(a: G1Affine, b: G1Affine) -> G1:
@@ -289,6 +320,19 @@ def scalar_mul_glv(p: G1, bits1, neg1, bits2, neg2) -> G1:
     return acc
 
 
+def scalar_mul_static(q: G1Affine, k: int) -> G1:
+    """k q for a host integer k (the subgroup check's z^2 - 1): MSB-first
+    double-and-add over k's bits, each addend q through `add_mixed`. k is
+    known on the host, so a zero bit costs a doubling and no addition; the
+    point equals the JAX ladder's, which adds and selects at every bit."""
+    acc = identity(q.x.shape[1:], q.x.device)
+    for bit in bin(max(k, 0))[2:]:
+        acc = double(acc)
+        if bit == "1":
+            acc = add_mixed(acc, q)
+    return acc
+
+
 def batch_normalize(p: G1) -> G1Affine:
     """Projective -> affine over the whole batch with one batched inversion;
     identity lanes are flagged and set to (0, 0)."""
@@ -326,6 +370,16 @@ def points_to_device(points, device) -> G1:
     dev = torch.from_numpy(packed).to(device)
     nl = FP.nlimbs
     return G1(dev[:nl], dev[nl : 2 * nl], dev[2 * nl :])
+
+
+def affine_to_device(points, device) -> G1Affine:
+    """Host affine points ((x, y) ints or None) -> G1Affine [N], (0, 0) on
+    identity lanes."""
+    xs = [0 if pt is None else pt[0] for pt in points]
+    ys = [0 if pt is None else pt[1] for pt in points]
+    packed = torch.from_numpy(np.concatenate([FP.to_mont_host(xs), FP.to_mont_host(ys)])).to(device)
+    inf = torch.tensor([pt is None for pt in points], dtype=torch.bool, device=device)
+    return G1Affine(packed[: FP.nlimbs], packed[FP.nlimbs :], inf)
 
 
 def affine_from_device(aff: G1Affine) -> list:

@@ -44,6 +44,9 @@ KERNELS = {
     ),
     "g1_add": ("g1_add.cu", "kzg_g1_add", "rust_eth_kzg_tpu/ops/pallas_kernels.py:163"),
     "g1_double": ("g1_double.cu", "kzg_g1_double", "rust_eth_kzg_tpu/ops/pallas_kernels.py:176"),
+    "g1_add_mixed": (
+        "g1_add_mixed.cu", "kzg_g1_add_mixed", "rust_eth_kzg_tpu/ops/pallas_kernels.py:186",
+    ),
     "g1_add_affine": (
         "g1_add_affine.cu", "kzg_g1_add_affine", "rust_eth_kzg_tpu/ops/pallas_kernels.py:210",
     ),
@@ -63,6 +66,7 @@ _ARGTYPES = {
     "kzg_batch_inverse": [_I, _P, _P, _P, _N, _P],
     "kzg_g1_add": [_P] * 9 + [_N, _P],
     "kzg_g1_double": [_P] * 6 + [_N, _P],
+    "kzg_g1_add_mixed": [_P] * 9 + [_N, _P],
     "kzg_g1_add_affine": [_P] * 9 + [_N, _P],
 }
 
@@ -272,6 +276,23 @@ def g1_double(p):
     n = p[0][0].numel()
     if n:
         _launch("g1_double", p[0].device, *(t.data_ptr() for t in (*p, *out)), n)
+    return tuple(out)
+
+
+def g1_add_mixed(p, qx, qy, qinf):
+    """Complete mixed addition of projective p (x, y, z [12, *batch]) and
+    affine q (x, y [12, *batch], inf bool [*batch]) -> (x, y, z)."""
+    shape = torch.broadcast_shapes(p[0].shape, qx.shape)
+    p = _coords(p, 12, "g1_add_mixed p", shape)
+    qx, qy = (t.expand(shape).contiguous() for t in (qx, qy))
+    _check(qx, 12, "g1_add_mixed qx")
+    _check(qy, 12, "g1_add_mixed qy")
+    qinf = qinf.expand(shape[1:]).to(torch.uint8).contiguous()
+    _check(qinf, None, "g1_add_mixed qinf", torch.uint8)
+    out = [torch.empty(shape, dtype=torch.int32, device=qx.device) for _ in range(3)]
+    n = qx[0].numel()
+    if n:
+        _launch("g1_add_mixed", qx.device, *(t.data_ptr() for t in (*p, qx, qy, qinf, *out)), n)
     return tuple(out)
 
 

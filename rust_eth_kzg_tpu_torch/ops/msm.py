@@ -1,14 +1,20 @@
-"""Fixed-base MSM over precomputed window tables (Lim-Lee chains), on torch.
+"""MSMs on torch: fixed-base over precomputed window tables (Lim-Lee
+chains), and variable-base (`lincomb`: Pippenger).
 
-For a fixed point set the table holds, for each point (and each of `chains`
-pre-scaled copies of it), the affine multiples d P for d = 1..2^(w-1).
-An MSM then takes signed w-bit digits of every scalar, reads one table
-entry per (window, point), sums each window's entries with a chord-addition
-level and a tree of complete additions, and runs a short Horner loop over
-the `wpc` windows of one chain.
+Fixed base: for a fixed point set the table holds, for each point (and each
+of `chains` pre-scaled copies of it), the affine multiples d P for
+d = 1..2^(w-1). An MSM then takes signed w-bit digits of every scalar, reads
+one table entry per (window, point), sums each window's entries with a
+chord-addition level and a tree of complete additions, and runs a short
+Horner loop over the `wpc` windows of one chain.
 
-The table reads, the digits and the selects are plain torch; the group
-operations launch the CUDA kernels through `ops/curve.py`.
+Variable base: `pippenger_msm` sorts each window's lanes by bucket with
+`torch.argsort`, takes one suffix scan of complete additions over the sorted
+points and reads the window sum off the scan (see its docstring).
+
+The table reads, the digits, the sorts, the gathers and the selects are
+plain torch; the group operations launch the CUDA kernels through
+`ops/curve.py`.
 """
 
 from __future__ import annotations
@@ -207,3 +213,96 @@ def fixed_base_msm(tables: FixedBaseMSM, scalars_mont: torch.Tensor) -> C.G1:
             acc = C.double(acc)
         acc = C.add(acc, C._map(lambda c: c[:, t], wsums))
     return acc
+
+
+# --- variable-base MSM ---
+
+
+def _incl_scan_add(p: C.G1) -> C.G1:
+    """Inclusive prefix scan of group addition along the last axis (a power
+    of two): add adjacent pairs, scan the half-length array, then fix up the
+    even positions; 2 n complete additions at halving widths."""
+    n = p.x.shape[-1]
+    if n == 1:
+        return p
+    even = C._map(lambda c: c[..., 0::2], p)
+    odd = C._map(lambda c: c[..., 1::2], p)
+    s = _incl_scan_add(C.add(even, odd))  # [..., n/2] pair-inclusive sums
+    idp = C.identity(p.batch_shape[:-1] + (1,), p.device)
+    sprev = C._map(lambda i, c: torch.cat((i, c[..., :-1]), dim=-1), idp, s)
+    out_even = C.add(sprev, even)
+    return C._map(lambda ce, co: torch.stack((ce, co), dim=-1).reshape(ce.shape[:-1] + (n,)), out_even, s)
+
+
+def _gather_last(c: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """c [L, *batch, M], idx [*batch, K] -> c[:, ..., idx] [L, *batch, K]."""
+    return torch.gather(c, -1, idx[None].expand((c.shape[0],) + tuple(idx.shape)))
+
+
+def pippenger_msm(points: C.G1, scalars_mont: torch.Tensor, window: int = 8) -> C.G1:
+    """Variable-base MSM sum_i k_i P_i by signed-window buckets.
+
+    points: G1 [*batch, N]; scalars_mont: [8, *batch, N]. Returns G1 [*batch].
+    1. signed w-bit digits of every scalar (`signed_digits`), h = 2^(w-1);
+    2. per window, each lane's signed point (y negated where d < 0, the
+       identity where d = 0) and bucket |d| - 1, or h for a zero digit (and
+       for the identity lanes that pad N to a power of two);
+    3. `torch.argsort` of the buckets, and one gather into sorted order;
+    4. one suffix scan T[i] = sum_{j >= i} sorted[j] (`_incl_scan_add` on the
+       reversed lanes), with T[pow2] = the identity for empty suffixes;
+    5. the window sum sum_b (b + 1) bucket_b = sum_{j < h} T[start_j], with
+       start_j the number of lanes whose bucket is below j: one gather of T
+       at the h starts and a tree sum;
+    6. Horner over the windows, most significant first.
+    """
+    digits = signed_digits(scalars_mont, window)  # [W, *batch, N]
+    n_win = digits.shape[0]
+    h = 1 << (window - 1)
+    n = points.x.shape[-1]
+    pow2 = 1 << max(n - 1, 0).bit_length()
+    device = points.device
+
+    shape = (FP.nlimbs,) + tuple(digits.shape)
+    bx, by, bz = (c[:, None].expand(shape) for c in points)
+    neg_mask = digits < 0
+    zero_mask = digits == 0
+    by = F.select(neg_mask, F.neg(FP, by), by)
+    one = FP.broadcast(FP.one(device), digits.shape)
+    zero = torch.zeros(shape, dtype=torch.int32, device=device)
+    bx = F.select(zero_mask, zero, bx)
+    by = F.select(zero_mask, one, by)
+    bz = F.select(zero_mask, zero, bz)
+    b_idx = torch.where(zero_mask, h, digits.abs() - 1)  # [W, *batch, N]
+    if pow2 != n:
+        pad = pow2 - n
+        pad_pt = C.identity(tuple(digits.shape[:-1]) + (pad,), device)
+        bx, by, bz = (torch.cat((c, i), dim=-1) for c, i in zip((bx, by, bz), pad_pt))
+        b_idx = torch.cat((b_idx, torch.full(b_idx.shape[:-1] + (pad,), h, dtype=b_idx.dtype, device=device)), dim=-1)
+    order = torch.argsort(b_idx, dim=-1, stable=True)
+    srt = C.G1(*(_gather_last(c, order) for c in (bx, by, bz)))
+    pre = _incl_scan_add(C._map(lambda c: torch.flip(c, (-1,)), srt))  # pre[i] = sum of the last i + 1
+    t_scan = C._map(lambda c: torch.flip(c, (-1,)), pre)  # T[i] = sum_{j >= i}
+    idp = C.identity(t_scan.batch_shape[:-1] + (1,), device)
+    t_scan = C._map(lambda c, i: torch.cat((c, i), dim=-1), t_scan, idp)
+
+    counts = (b_idx[..., None] == torch.arange(h, device=device)).sum(dim=-2)  # [W, *batch, h]
+    start = torch.cumsum(counts, dim=-1) - counts
+    wsums = C.reduce_sum(C.G1(*(_gather_last(c, start) for c in t_scan)), axis=-1)  # [W, *batch]
+
+    acc = C._map(lambda c: c[:, n_win - 1], wsums)
+    for t in range(n_win - 2, -1, -1):
+        for _ in range(window):
+            acc = C.double(acc)
+        acc = C.add(acc, C._map(lambda c: c[:, t], wsums))
+    return acc
+
+
+def lincomb(points: C.G1, scalars_mont: torch.Tensor) -> C.G1:
+    """Variable-base MSM sum_i k_i P_i over the last axis, by Pippenger with
+    window min(8, max(4, bit_length(N) - 4)).
+
+    points: G1 [*batch, N]; scalars_mont: [8, *batch, N]. Identity points and
+    zero scalars need no filtering: they contribute the identity.
+    """
+    n = points.x.shape[-1]
+    return pippenger_msm(points, scalars_mont, min(8, max(4, n.bit_length() - 4)))

@@ -80,6 +80,28 @@ class Domain:
     def ifft(self, evals: torch.Tensor) -> torch.Tensor:
         return F.mont_mul_const(FR, self._dit(evals, "inv"), self.size_inv)
 
+    def _coset_powers(self, gen: int) -> torch.Tensor:
+        """[gen^0, ..., gen^(n-1)] in Montgomery form, [L, n] on the device."""
+        key = ("coset", gen)
+        if key not in self._tw:
+            pw = [1] * self.size
+            for i in range(1, self.size):
+                pw[i] = pw[i - 1] * gen % R_SCALAR
+            self._tw[key] = torch.from_numpy(FR.to_mont_host(pw)).to(self.device)
+        return self._tw[key]
+
+    def _scale(self, x: torch.Tensor, gen: int) -> torch.Tensor:
+        pw = self._coset_powers(gen)
+        return F.mont_mul(FR, x, pw.reshape((FR.nlimbs,) + (1,) * (x.dim() - 2) + (self.size,)))
+
+    def coset_fft(self, coeffs: torch.Tensor, coset_gen: int) -> torch.Tensor:
+        """Evaluate over the coset g H: scale coefficient k by g^k, then FFT."""
+        return self.fft(self._scale(coeffs, coset_gen))
+
+    def coset_ifft(self, evals: torch.Tensor, coset_gen: int) -> torch.Tensor:
+        """Inverse of `coset_fft`: IFFT, then scale coefficient k by g^-k."""
+        return self._scale(self.ifft(evals), pow(coset_gen, R_SCALAR - 2, R_SCALAR))
+
     # --- G1 transforms: p is a G1 with batch shape [B, n] ---
 
     def _stage_bits(self, tag: str, gen: int):

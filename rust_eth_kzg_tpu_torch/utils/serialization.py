@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import BYTES_PER_FIELD_ELEMENT, R_SCALAR
+from ..constants import BYTES_PER_CELL, BYTES_PER_FIELD_ELEMENT, R_SCALAR
 from ..errors import SerializationError
 from ..ops import limbs as L
 
@@ -48,6 +48,19 @@ def deserialize_scalars(data: bytes, expected_len: int | None = None) -> np.ndar
     raw = np.frombuffer(bytes(data), dtype=np.uint8).reshape(n, 32)
     _check_canonical_scalars(raw)
     return L.bytes_be_to_limbs(raw, FR_LIMBS)
+
+
+def deserialize_cells_batch(cells, cell_bytes: int = BYTES_PER_CELL) -> np.ndarray:
+    """K cells -> [K, coset, 8] standard-form limbs in one vectorized pass;
+    every cell must be `cell_bytes` long (BYTES_PER_CELL at mainnet
+    geometry) and every scalar canonical."""
+    cells = [bytes(c) for c in cells]
+    for c in cells:
+        if len(c) != cell_bytes:
+            raise SerializationError(f"cell has invalid length {len(c)}, expected {cell_bytes}")
+    per_cell = cell_bytes // BYTES_PER_FIELD_ELEMENT
+    std = deserialize_scalars(b"".join(cells))  # [8, K * coset]
+    return np.ascontiguousarray(std.reshape(std.shape[0], len(cells), per_cell).transpose(1, 2, 0))
 
 
 def serialize_scalars(std_limbs) -> bytes:

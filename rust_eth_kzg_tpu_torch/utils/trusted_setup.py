@@ -1,9 +1,10 @@
-"""Trusted setup loading: the G1 monomial points of the embedded mainnet setup.
+"""Trusted setup loading: the G1 and G2 monomial points of the embedded mainnet setup.
 
 The port's copy of the consensus-spec JSON lives in `data/`. The default
-setup decompresses its 4096 G1 points without subgroup checks (on-curve
-checks still apply), as the reference's unchecked default does; the G2
-points and `g1_lagrange` are not read (the prover needs neither).
+setup decompresses its 4096 G1 and 65 G2 points without subgroup checks
+(on-curve checks still apply), as the reference's unchecked default does;
+`g1_lagrange` is not read. The prover needs the G1 points; the cell-proof
+verifier needs the first 65 G1 points and the G2 points.
 """
 
 from __future__ import annotations
@@ -19,9 +20,12 @@ SETUP_JSON_PATH = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data
 
 @dataclass(frozen=True)
 class TrustedSetup:
-    """G1 monomial points as affine (x, y) int tuples (None for the identity)."""
+    """Monomial points as affine int tuples (None for the identity): G1 as
+    (x, y), G2 as ((x0, x1), (y0, y1)). A setup without G2 points serves the
+    prover only."""
 
     g1_monomial: list
+    g2_monomial: list = ()
 
     @staticmethod
     def from_json(json_str: str, subgroup_check: bool = True) -> "TrustedSetup":
@@ -30,7 +34,11 @@ class TrustedSetup:
             g1_monomial=[
                 bls.g1_decompress(_hex_bytes(h, 48), subgroup_check=subgroup_check)
                 for h in data["g1_monomial"]
-            ]
+            ],
+            g2_monomial=[
+                bls.g2_decompress(_hex_bytes(h, 96), subgroup_check=subgroup_check)
+                for h in data["g2_monomial"]
+            ],
         )
 
     @staticmethod

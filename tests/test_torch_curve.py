@@ -6,6 +6,9 @@ arithmetic in both packages, so the canonical projective coordinates agree
 exactly, not only the points. The JAX bodies run eagerly (jit disabled):
 compiled, each costs seconds on the CPU. scalar_mul_glv is held against the
 host oracle instead: the JAX GLV ladder takes minutes to compile here.
+add_mixed is compared coordinate for coordinate; scalar_mul_static runs
+another representative of the same point (the port skips the additions of
+zero bits), so it is compared after normalization.
 """
 
 import jax
@@ -15,7 +18,7 @@ import torch
 
 from rust_eth_kzg_tpu.ops import curve as JC
 from rust_eth_kzg_tpu.ops import limbs as JL
-from rust_eth_kzg_tpu_torch.constants import GLV_BETA, P, R_SCALAR
+from rust_eth_kzg_tpu_torch.constants import BLS_X, GLV_BETA, P, R_SCALAR
 from rust_eth_kzg_tpu_torch.ops import curve as C
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
@@ -120,6 +123,49 @@ def test_add_affine_matches_jax():
     for i, (x, y) in enumerate(zip(a, b)):
         if i != 5:
             assert got[i] == B.g1_add(x, y)
+
+
+def _affine(pts):
+    xs = [0 if p is None else p[0] for p in pts]
+    ys = [0 if p is None else p[1] for p in pts]
+    inf = [p is None for p in pts]
+    port = C.G1Affine(torch.from_numpy(FP.to_mont_host(xs)), torch.from_numpy(FP.to_mont_host(ys)), torch.tensor(inf))
+    jax_q = JC.G1Affine(jnp.asarray(JC.FP.to_mont_host(xs)), jnp.asarray(JC.FP.to_mont_host(ys)), jnp.asarray(inf))
+    return port, jax_q
+
+
+def test_add_mixed_matches_jax():
+    """Identity p lanes, identity q lanes, p == q (the complete formula
+    doubles) and p == -q lanes."""
+    a, b = _pairs()
+    b[7] = a[7]
+    pa = _projective(a, 18)
+    q, jq = _affine(b)
+    got = C.add_mixed(_port_g1(pa), q)
+    with jax.disable_jit():
+        want = JC.add_mixed_values(_jax_g1(pa), jq)
+    assert _port_coords(got) == _jax_coords(want)
+    assert C.points_from_device(got) == [B.g1_add(x, y) for x, y in zip(a, b)]
+
+
+def test_scalar_mul_static_matches_jax():
+    """The subgroup check's ladder, k = z^2 - 1 (128 bits, 48 of them set),
+    against JAX's compiled scalar_mul_static (its eager scan takes minutes
+    on an 8-core CPU) and the host oracle."""
+    k = BLS_X**2 - 1
+    pts = _points(4, 19)
+    pts[1] = None
+    q, _ = _affine(pts)
+    got = C.points_from_device(C.scalar_mul_static(q, k))
+    want = JC.points_from_device(JC.scalar_mul_static(JC.points_to_device(pts), k))
+    assert got == want == [None if p is None else B.g1_mul_unreduced(p, k) for p in pts]
+
+
+def test_affine_to_device_round_trip():
+    pts = _points(3, 22) + [None]
+    aff = C.affine_to_device(pts, "cpu")
+    assert aff.inf.tolist() == [False, False, False, True]
+    assert C.affine_from_device(aff) == pts
 
 
 def test_batch_normalize_matches_jax():

@@ -8,8 +8,10 @@ many minutes and many GB. The port proves the same blobs through
 prover's tables carried over by utils/convert.py; cells, proofs and
 commitments must equal the JAX package's bytes. The same test holds the
 port's 16-point fft_g1 / ifft_g1 and its fixed-base MSM against the JAX
-graphs that the prover has already compiled, on fresh inputs. A host oracle
-check and the package guards need no JAX graph.
+graphs that the prover has already compiled, on fresh inputs, and runs the
+port's recovery and verifier on the JAX bytes: both blobs recovered from
+half of their cells, JAX's proofs accepted, a swapped pair rejected. A host
+oracle check and the package guards need no JAX graph.
 """
 
 import ast
@@ -29,7 +31,7 @@ from rust_eth_kzg_tpu.ops import field as JF
 from rust_eth_kzg_tpu.utils import serialization as JSER
 from rust_eth_kzg_tpu_torch import DASContext, TrustedSetup, api
 from rust_eth_kzg_tpu_torch.constants import P, R_SCALAR
-from rust_eth_kzg_tpu_torch.errors import SerializationError
+from rust_eth_kzg_tpu_torch.errors import InvalidProofError, SerializationError
 from rust_eth_kzg_tpu_torch.models import naive
 from rust_eth_kzg_tpu_torch.models.fk20 import FK20Config, FK20Prover, _circulant_index_map
 from rust_eth_kzg_tpu_torch.ops import curve as C
@@ -47,13 +49,13 @@ PORT = os.path.join(REPO, "rust_eth_kzg_tpu_torch")
 
 @pytest.fixture(scope="module")
 def setup():
-    g1s, tau = naive.insecure_setup(CFG.poly_len)
+    g1s, g2s, tau = naive.insecure_setup(CFG.poly_len, CFG.coset_size + 1)
     rng = np.random.default_rng(20)
     coeffs = [int(v) ** 5 % R_SCALAR for v in rng.integers(1, 2**62, size=CFG.poly_len)]
     dom = ntt.Domain(CFG.poly_len, "cpu")
     evals = naive.ntt_host(coeffs, dom.generator)
     blob = b"".join(evals[int(r)].to_bytes(32, "big") for r in ntt.bitrev_indices(CFG.poly_len))
-    return g1s, tau, coeffs, [blob, bytes(32 * CFG.poly_len)]
+    return g1s, tau, coeffs, [blob, bytes(32 * CFG.poly_len)], g2s
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +84,7 @@ def jax_outputs(setup, jax_prover):
 
 @pytest.fixture(scope="module")
 def port_ctx(setup):
-    return DASContext(device="cpu", trusted_setup=TrustedSetup(setup[0]), config=CFG)
+    return DASContext(device="cpu", trusted_setup=TrustedSetup(setup[0], setup[4]), config=CFG)
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +104,7 @@ def _carried_tables(jax_prover):
 
 
 def test_matches_naive_oracle(setup, port_ctx, port_outputs):
-    _, tau, coeffs, blobs = setup
+    _, tau, coeffs, blobs, _ = setup
     cells, proofs = port_outputs[0]
     zero_cells, zero_proofs = port_outputs[1]
     assert all(c == bytes(32 * CFG.coset_size) for c in zero_cells)
@@ -235,11 +237,37 @@ def _check_fixed_base_msm(jax_prover, port_ctx, jpoly):
     assert want[1] is None and want[0] is not None
 
 
+def _check_recover_and_verify(port_ctx, proved, commitments):
+    """The port recovers both JAX blobs from 8 of their 16 cells (a seeded
+    pattern each) byte for byte, accepts JAX's proofs of both blobs in one
+    batch and rejects blob 0's batch with two proofs swapped."""
+    size = 32 * CFG.coset_size
+    cells = [[joined[i : i + size] for i in range(0, len(joined), size)] for joined, _ in proved]
+    proofs = [list(p) for _, p in proved]
+    rng = np.random.default_rng(23)
+    batches = []
+    for c in cells:
+        idx = sorted(int(i) for i in rng.choice(CFG.num_proofs, size=CFG.num_proofs // 2, replace=False))
+        batches.append((idx, [c[i] for i in idx]))
+    assert batches[0][0] != batches[1][0]
+    recovered = port_ctx.recover_cells_and_kzg_proofs_batch(batches)
+    assert [(list(rc), list(rp)) for rc, rp in recovered] == list(zip(cells, proofs))
+    n = CFG.num_proofs
+    port_ctx.verify_cell_kzg_proof_batch(
+        [commitments[0]] * n + [commitments[1]] * n, list(range(n)) * 2, cells[0] + cells[1], proofs[0] + proofs[1]
+    )
+    swapped = list(proofs[0])
+    swapped[1], swapped[2] = swapped[2], swapped[1]
+    with pytest.raises(InvalidProofError):
+        port_ctx.verify_cell_kzg_proof_batch([commitments[0]] * n, list(range(n)), cells[0], swapped)
+
+
 def test_slice_matches_jax(setup, port_ctx, port_outputs, jax_prover, jax_outputs):
     """Tables, cells, proofs and commitments equal the JAX package's, with the
     port's own tables and with the JAX prover's tables carried over; so do
-    the G1 transforms and the fixed-base MSM on fresh inputs. One test, so
-    that a run over several workers builds the JAX prover once."""
+    the G1 transforms and the fixed-base MSM on fresh inputs; the port's
+    recovery and verifier agree with the JAX bytes. One test, so that a run
+    over several workers builds the JAX prover once."""
     carried = _carried_tables(jax_prover)
     for mine, theirs in zip((port_ctx.prover.tables, port_ctx.prover.commit_tables), carried):
         assert (mine.window, mine.chains, mine.wpc, mine.instance_ndim) == (
@@ -257,3 +285,4 @@ def test_slice_matches_jax(setup, port_ctx, port_outputs, jax_prover, jax_output
     assert [port_ctx.blob_to_kzg_commitment(b) for b in setup[3]] == commitments
     _check_g1_transforms(jax_prover, port_ctx)
     _check_fixed_base_msm(jax_prover, port_ctx, jpoly)
+    _check_recover_and_verify(port_ctx, proved, commitments)

@@ -66,6 +66,22 @@ def test_g1_kernels(device):
     assert all(torch.equal(g, w) for g, w in zip(got, C.add_affine_plain(a, b)))
 
 
+def test_g1_add_mixed_kernel(device):
+    """Projective p + affine q with identity q lanes, identity p lanes and
+    p == q lanes (the complete formula doubles there)."""
+    p = _points(300, 8, device)
+    q = C.batch_normalize(_points(300, 9, device))
+    ident = C.identity((300,), device)
+    p = C.select(torch.arange(300, device=device) % 11 == 0, ident, p)
+    same = C.batch_normalize(p)
+    mask = (torch.arange(300, device=device) % 7 == 3) & ~same.inf
+    q = C.G1Affine(F.select(mask, same.x, q.x), F.select(mask, same.y, q.y), q.inf | (torch.arange(300, device=device) % 13 == 5))
+    got = K.g1_add_mixed(p, q.x, q.y, q.inf)
+    assert all(torch.equal(g, w) for g, w in zip(got, C.add_mixed_plain(p, q)))
+    want = C.add(p, C.G1(q.x, q.y, F.select(q.inf, torch.zeros_like(q.x), F.FP.broadcast(F.FP.one(device), (300,)))))
+    assert bool(C.equal(C.G1(*got), C.select(q.inf, p, want)).all())
+
+
 @pytest.mark.parametrize("n", [1, 333, 32 * 640 + 5])
 def test_batch_inverse_kernel(device, n):
     for spec in (F.FR, F.FP):
