@@ -8,7 +8,9 @@ native pairing library from `csrc/host/`) and runs, printing one JSON line
 per phase:
   1. build           nvcc time, registers and spills of every kernel;
   2. kernels         each kernel against its plain torch version on the card,
-                     exactly (integer arithmetic: tolerance 0);
+                     exactly (integer arithmetic: tolerance 0); for g1_fft
+                     also the latency floor of its dependent chain (one-lane
+                     g1_double launches replayed from a CUDA graph);
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
                      prove path: compute_cells_and_kzg_proofs_batch on the
                      zero blob and seven seeded random blobs (zero-blob,
@@ -23,7 +25,9 @@ per phase:
   6. launches        the kernel launch counts of one call of each path
                      (prove B=8, recover B=8, verify 1,024 cells), each reset
                      just before its call and read just after: every kernel
-                     a path runs must have launched on it;
+                     a path runs must have launched on it, the prover's two
+                     G1 transforms as 2 g1_fft launches with at most 100
+                     g1_add + g1_double launches beside them;
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py);
@@ -85,6 +89,68 @@ def cuda_ms(fn, reps):
 def mont_mul_imad(nlimbs):
     # CIOS: N^2 products a_i b_j and N^2 products m p_j (2 IMADs each), N low products m
     return 2 * (2 * nlimbs * nlimbs) + nlimbs
+
+
+# Products of the g1_fft kernel: a doubling is 8 Montgomery products and an
+# addition 12 (the products by 3b = 12 are additions); each product round of
+# a team holds one doubling's or addition's independent products.
+DBL_PRODUCTS, ADD_PRODUCTS, DBL_ROUNDS, ADD_ROUNDS = 8, 12, 2, 2
+GLV_STEPS = 65
+
+
+def _ladder(products_dbl, products_add, beta):
+    """One GLV ladder: the product by beta, the table (2 doublings, 14
+    additions) and 65 steps of 2 doublings and 1 addition."""
+    return beta + 2 * products_dbl + 14 * products_add + GLV_STEPS * (2 * products_dbl + products_add)
+
+
+def g1_fft_products(n):
+    """Montgomery products of one n-point row: n/2 butterflies a stage (2
+    additions each), and a ladder per butterfly in stages 1..log n - 1."""
+    log_n = n.bit_length() - 1
+    return (n // 2) * (log_n * 2 * ADD_PRODUCTS + (log_n - 1) * _ladder(DBL_PRODUCTS, ADD_PRODUCTS, 1))
+
+
+def g1_fft_rounds(n):
+    """Product rounds on one team's dependent chain through a whole row."""
+    log_n = n.bit_length() - 1
+    return log_n * 2 * ADD_ROUNDS + (log_n - 1) * _ladder(DBL_ROUNDS, ADD_ROUNDS, 1)
+
+
+def _one_lane_ms(torch, fn, launches):
+    """Device ms of one launch of `fn`, from `launches` launches replayed from
+    one CUDA graph, so that no Python is timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / launches
+
+
+def g1_fft_latency_floor(torch, K, C, F, device, launches=200):
+    """The critical-path floor of g1_fft at 128 points: its product rounds
+    times the latency of one dependent Fp product on one lane, read from
+    the g1_double kernel (9 dependent products) on one lane. That reading
+    also holds the launch and the loads; the one-lane g1_add (14 products)
+    beside it gives a second reading with those cancelled, (add - double) / 5."""
+    p, _ = _random_points(C, F, 1, SEED + 30, device)
+    p = C.G1(*(c.contiguous() for c in p))
+    dbl = _one_lane_ms(torch, lambda: K.g1_double(p), launches)
+    add = _one_lane_ms(torch, lambda: K.g1_add(p, p), launches)
+    per_product = dbl / 9
+    rounds = g1_fft_rounds(128)
+    return {"g1_double_1lane_ms": dbl, "g1_add_1lane_ms": add, "product_latency_ms": per_product,
+            "product_latency_diff_ms": (add - dbl) / 5, "product_rounds": rounds,
+            "critical_path_ms": rounds * per_product, "critical_path_diff_ms": rounds * (add - dbl) / 5}
 
 
 def bound(imad, nbytes):
@@ -166,10 +232,13 @@ def phase_kernels(torch, K, F, C, device):
     FR, FP = F.FR, F.FP
     results = {}
 
-    def compare(name, kernel, plain, nbytes, imad, reps=20, main=True, record=None):
+    def compare(name, kernel, plain, nbytes, imad, reps=20, main=True, record=None, plain_reps=2):
         got = kernel()
         torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         want = plain()
+        stop.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -179,7 +248,8 @@ def phase_kernels(torch, K, F, C, device):
             raise CheckFailed(f"kernel {name} disagrees with its plain version (max abs limb error {err})")
         if main:
             ms = cuda_ms(kernel, reps)
-            plain_ms = cuda_ms(plain, 2)
+            # plain_reps=0: the checking run alone times the plain version (a slow one)
+            plain_ms = cuda_ms(plain, plain_reps) if plain_reps else start.elapsed_time(stop)
             b_ms, b_by = bound(imad, nbytes)
             results[record or name] = {
                 "ok": True, "max_abs_err": err, "kernel_ms": ms, "ms": ms, "plain_ms": plain_ms,
@@ -283,6 +353,28 @@ def phase_kernels(torch, K, F, C, device):
     compare("g1_add_affine", lambda: K.g1_add_affine(A.x, A.y, A.inf, Bq.x, Bq.y, Bq.inf),
             lambda: tuple(C.add_affine_plain(A, Bq)), (4 * 48 + 2) * n + 3 * 48 * n,
             live * 8 * mont_mul_imad(12))
+
+    # g1_fft: the proof transform of one blob, [12, 1, 128] fwd, the identity
+    # in its second half (timed); wide: the init's [12, 64, 128] circulant
+    # transform (timed); inv at [12, 1, 128] and [12, 8, 128], checked. Row 0
+    # of each is the identity in its second half, row 1 all identity.
+    dom128 = ntt.Domain(128, device)
+    for rows, record, tag in ((1, None, "fwd"), (64, "g1_fft_wide", "fwd"), (1, False, "inv"),
+                              (8, False, "inv")):
+        p, _ = _random_points(C, F, rows * 128, SEED + 16 + rows, device)
+        p = C.G1(*(c.reshape(12, rows, 128).contiguous() for c in p))
+        ident = C.identity((128,), device)
+        for c, ic in zip(p, ident):
+            c[:, 0, 64:] = ic[:, 64:]
+            if rows > 1:
+                c[:, 1] = ic
+        digits, neg1, neg2 = dom128._stage_digits(tag)
+        compare("g1_fft", lambda: K.g1_fft(p, digits, neg1, neg2),
+                lambda: tuple(dom128._dit_g1_plain(p, tag)),
+                2 * 3 * 48 * rows * 128 + digits.numel() + 2 * neg1.numel(),
+                rows * g1_fft_products(128) * mont_mul_imad(12), reps=5,
+                main=record is not False, record=record or None, plain_reps=0)
+    results["g1_fft"].update(g1_fft_latency_floor(torch, K, C, F, device))
 
     # batch_inverse: the proofs of one blob, Fp [12, 128] (timed); 333 lanes of
     # both fields and the ragged 32 x 640 Fr case
@@ -491,8 +583,8 @@ def phase_mainnet_oracle(torch, api, C, device):
     for i in range(1, 4096):
         powers[i] = powers[i - 1] * tau % R_SCALAR
     g = C.points_to_device([B.G1_GEN] * 4096, device)
-    b1, n1, b2, n2 = (torch.from_numpy(a).to(device) for a in C.glv_bits_host(powers))
-    srs = C.affine_from_device(C.batch_normalize(C.scalar_mul_glv(g, b1, n1, b2, n2)))
+    digits, n1, n2 = (torch.from_numpy(a).to(device) for a in C.glv_digits_host(powers))
+    srs = C.affine_from_device(C.batch_normalize(C.scalar_mul_glv(g, digits, n1, n2)))
     check(srs[1] == B.g1_mul(B.G1_GEN, tau), "SRS point 1 is [tau] G")
     srs_s = time.perf_counter() - t0
     ctx = api.DASContext(device=device, trusted_setup=TrustedSetup(srs))
@@ -528,6 +620,7 @@ KERNEL_FUNCTIONS = {
     "g1_add_affine": "g1_add_affine_kernel", "g1_add_mixed": "g1_add_mixed_kernel",
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
     "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
+    "g1_fft": "g1_fft_kernel",
 }
 
 
@@ -709,15 +802,23 @@ def main() -> int:
         }
         emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
         # every kernel each path runs launched on it; g1_add_mixed runs only
-        # in the verifier's subgroup check
+        # in the verifier's subgroup check, g1_fft only in the prover's two
+        # G1 transforms (prove, and recover's re-prove)
         expected = {
             "prove": set(K.KERNELS) - {"g1_add_mixed"},
             "recover": set(K.KERNELS) - {"g1_add_mixed"},
-            "verify": set(K.KERNELS),
+            "verify": set(K.KERNELS) - {"g1_fft"},
         }
         for path, (_, counts) in paths.items():
             missing = sorted(k for k in expected[path] if counts[k] <= 0)
             check(not missing, f"{path} path launched no {missing}: {counts}")
+        # the G1 transforms are one g1_fft launch each, not ladders composed
+        # from the per-operation kernels
+        for path in ("prove", "recover"):
+            counts = paths[path][1]
+            check(counts["g1_fft"] == 2, f"{path}: 2 g1_fft launches expected: {counts}")
+            check(counts["g1_add"] + counts["g1_double"] <= 100,
+                  f"{path}: at most 100 g1_add + g1_double launches expected: {counts}")
         check(all(any(n[k] > 0 for _, n in paths.values()) for k in K.KERNELS),
               "every kernel launched on some path")
         phase_mainnet_oracle(torch, api, C, device)
@@ -742,6 +843,10 @@ def main() -> int:
         if wide:
             row.update({"wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
                         "wide_bound_ms": wide["bound_ms"], "wide_bound_by": wide["bound_by"]})
+        for key in ("g1_double_1lane_ms", "g1_add_1lane_ms", "product_latency_ms", "product_latency_diff_ms",
+                    "product_rounds", "critical_path_ms", "critical_path_diff_ms"):
+            if key in r:
+                row[key] = r[key]
         summary.append(row)
     emit({"kernels": summary})
     print(smi, flush=True)

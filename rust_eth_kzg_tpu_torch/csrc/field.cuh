@@ -34,6 +34,10 @@ __constant__ uint32_t FP_EXP[12] = {
 __constant__ uint32_t FP_B3[12] = {
     0x0027552e, 0x44760000, 0x43480020, 0xdcb8009a, 0x4a6e8b59, 0x6f7ee9ce,
     0xc0a95bc6, 0xb10330b7, 0xfb1e54b7, 0x6140b1fc, 0x7f0bb4e1, 0x0381be09};
+// beta R mod p: the GLV endomorphism phi(x, y) = (beta x, y) in Montgomery form
+__constant__ uint32_t FP_BETA[12] = {
+    0x8671f071, 0xcd03c9e4, 0x1fcda5d2, 0x5dab2246, 0xd3851b95, 0x587042af,
+    0x01bacb9e, 0x8eb60ebe, 0x83d050d2, 0x03f97d6e, 0x54638741, 0x18f02065};
 
 __constant__ uint32_t FR_MOD[8] = {
     0x00000001, 0xffffffff, 0xfffe5bfe, 0x53bda402,

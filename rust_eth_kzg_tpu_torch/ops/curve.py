@@ -284,39 +284,53 @@ def glv_bits_host(scalars):
     return bits(raw1), neg1, bits(raw2), neg2
 
 
+def glv_digits_host(scalars):
+    """Host ints -> (digits uint8 [GLV_NBITS / 2, N], neg1 bool [N], neg2 bool [N]):
+    the joint width-2 window digits 4 d1 + d2 of the two half scalars, MSB first."""
+    b1, n1, b2, n2 = glv_bits_host(scalars)
+    d1 = 2 * b1[0::2].astype(np.uint8) + b1[1::2]
+    d2 = 2 * b2[0::2].astype(np.uint8) + b2[1::2]
+    return (4 * d1 + d2).astype(np.uint8), n1, n2
+
+
 def glv_endomorphism(p: G1) -> G1:
     return G1(F.mont_mul_const(FP, p.x, GLV_BETA), p.y, p.z)
 
 
-def scalar_mul_glv(p: G1, bits1, neg1, bits2, neg2) -> G1:
+def scalar_mul_glv(p: G1, digits, neg1, neg2, plain: bool = False) -> G1:
     """k p by the GLV split with width-2 windows: a 16-entry table
-    {a P1 + b P2 : a, b in 0..3} and 65 steps of (2 doublings + 1 addition).
+    {a P1 + b P2 : a, b in 0..3} (entry 4 a + b) and 65 steps of
+    (2 doublings + 1 addition), one per joint digit.
 
-    bits*: bool [GLV_NBITS, *batch] MSB first; neg*: bool [*batch].
+    digits: integer [GLV_NBITS / 2, *batch] in 0..15, MSB first (`glv_digits_host`);
+    neg*: bool or 0/1 [*batch], the signs of the two half scalars. With
+    `plain` the plain formulas run on any device (the reference that the
+    `g1_fft` kernel is held against on the card); otherwise each group
+    operation goes to its kernel for CUDA tensors.
     """
+    add_, double_ = (add_plain, double_plain) if plain else (add, double)
+    mul = F.mont_mul_plain if plain else F.mont_mul
     batch = p.batch_shape
+    neg1, neg2 = neg1.to(torch.bool), neg2.to(torch.bool)
     p1 = select(neg1, neg(p), p)
-    phi = glv_endomorphism(p)
+    phi = G1(mul(FP, p.x, FP.broadcast(FP.mont_const(GLV_BETA, p.device), batch)), p.y, p.z)
     p2 = select(neg2, neg(phi), phi)
     ident = identity(batch, p.device)
-    p1_2 = double(p1)
-    p1_3 = add(p1_2, p1)
-    p2_2 = double(p2)
-    p2_3 = add(p2_2, p2)
+    p1_2 = double_(p1)
+    p1_3 = add_(p1_2, p1)
+    p2_2 = double_(p2)
+    p2_3 = add_(p2_2, p2)
     row0 = [ident, p2, p2_2, p2_3]
-    entries = row0 + [add(e, p1) for e in row0] + [add(e, p1_2) for e in row0]
-    entries += [add(e, p1_3) for e in row0]
+    entries = row0 + [add_(e, p1) for e in row0] + [add_(e, p1_2) for e in row0]
+    entries += [add_(e, p1_3) for e in row0]
     table = G1(*(torch.stack([e[i] for e in entries]) for i in range(3)))  # [16, L, *batch]
 
-    d1 = 2 * bits1[0::2].to(torch.int64) + bits1[1::2].to(torch.int64)
-    d2 = 2 * bits2[0::2].to(torch.int64) + bits2[1::2].to(torch.int64)
-    digits = 4 * d1 + d2  # [nb/2, *batch] in 0..15
     idx_shape = (1, FP.nlimbs) + tuple(batch)
     acc = ident
-    for d in digits:
-        acc = double(double(acc))
+    for d in digits.to(torch.int64):
+        acc = double_(double_(acc))
         idx = d.reshape((1, 1) + tuple(batch)).expand(idx_shape)
-        acc = add(acc, G1(*(torch.gather(c, 0, idx)[0] for c in table)))
+        acc = add_(acc, G1(*(torch.gather(c, 0, idx)[0] for c in table)))
     return acc
 
 

@@ -29,6 +29,8 @@ import time
 
 import torch
 
+from ..constants import GLV_NBITS
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 NVCC_FLAGS = [
@@ -53,6 +55,7 @@ KERNELS = {
     "batch_inverse": (
         "batch_inverse.cu", "kzg_batch_inverse", "rust_eth_kzg_tpu/ops/pallas_kernels.py:274",
     ),
+    "g1_fft": ("g1_fft.cu", "kzg_g1_fft", "rust_eth_kzg_tpu/ops/ntt.py:232"),
 }
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -68,6 +71,7 @@ _ARGTYPES = {
     "kzg_g1_double": [_P] * 6 + [_N, _P],
     "kzg_g1_add_mixed": [_P] * 9 + [_N, _P],
     "kzg_g1_add_affine": [_P] * 9 + [_N, _P],
+    "kzg_g1_fft": [_P] * 9 + [_N, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -310,4 +314,36 @@ def g1_add_affine(ax, ay, ainf, bx, by, binf):
     n = ax[0].numel()
     if n:
         _launch("g1_add_affine", ax.device, *(t.data_ptr() for t in (ax, ay, ainf, bx, by, binf, *out)), n)
+    return tuple(out)
+
+
+G1_FFT_MAX_N = 512  # 8 blocks of 64 points a row: 256 threads and 136 KB of shared memory a block
+
+
+def g1_fft(p, digits, neg1, neg2):
+    """The DIT G1 transform of `ntt.Domain._dit_g1` over every row of p
+    (x, y, z [12, B, n], natural order in and out): digits uint8
+    [log n - 1, 65, n/2] and signs neg1, neg2 uint8 [log n - 1, n/2] are
+    `Domain._stage_digits`. One launch for all rows and stages."""
+    p = _coords(p, 12, "g1_fft p")
+    shape = p[0].shape
+    if any(c.shape != shape for c in p) or len(shape) != 3:
+        raise ValueError(f"g1_fft: expected three [12, B, n] coordinates, got {[tuple(c.shape) for c in p]}")
+    _, rows, n = shape
+    log_n = n.bit_length() - 1
+    if n < 2 or n != 1 << log_n or n > G1_FFT_MAX_N:
+        raise ValueError(f"g1_fft: n must be a power of two in [2, {G1_FFT_MAX_N}], got {n}")
+    _check(digits, None, "g1_fft digits", torch.uint8)
+    _check(neg1, None, "g1_fft neg1", torch.uint8)
+    _check(neg2, None, "g1_fft neg2", torch.uint8)
+    signs = (log_n - 1, n // 2)
+    if digits.shape != (log_n - 1, GLV_NBITS // 2, n // 2) or neg1.shape != signs or neg2.shape != signs:
+        raise ValueError(
+            f"g1_fft: bad digit tables {tuple(digits.shape)}, {tuple(neg1.shape)}, {tuple(neg2.shape)} for n = {n}"
+        )
+    if any(t.device != p[0].device for t in (digits, neg1, neg2)):
+        raise ValueError("g1_fft: digit tables and points on different devices")
+    out = [torch.empty_like(p[0]) for _ in range(3)]
+    if rows:
+        _launch("g1_fft", p[0].device, *(t.data_ptr() for t in (*p, digits, neg1, neg2, *out)), rows, log_n)
     return tuple(out)

@@ -7,7 +7,10 @@ kernel launch (the plain version on the CPU) over every row of the batch;
 the input is bit-reversed first, so the stages are the textbook in-order
 decimation in time. The G1 transform keeps the JAX package's schedule:
 stage 0 is a plain add/sub, later stages multiply every pair's second
-point by its twiddle with the GLV ladder.
+point by its twiddle with the GLV ladder. On CUDA tensors the whole G1
+transform, every stage and ladder of every row, is one `g1_fft` kernel
+launch; on CPU tensors it runs stage by stage through `curve.scalar_mul_glv`.
+Both read the same digit tables (`Domain._stage_digits`).
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import R_SCALAR, ROOT_OF_UNITY, TWO_ADICITY
+from ..constants import GLV_NBITS, R_SCALAR, ROOT_OF_UNITY, TWO_ADICITY
 from . import curve as C
 from . import field as F
+from . import kernels as K
 
 FR = F.FR
 
@@ -59,7 +63,7 @@ class Domain:
         for tag, gen in (("fwd", self.generator), ("inv", self.generator_inv)):
             pw = [pow(gen, k, R_SCALAR) for k in range(max(size // 2, 1))]
             self._tw[tag] = torch.from_numpy(FR.to_mont_host(pw)).to(self.device)
-        self._g1_bits = {}
+        self._g1_digits = {}
 
     # --- scalar transforms: x is [L, *batch, n] Montgomery limbs ---
 
@@ -104,72 +108,89 @@ class Domain:
 
     # --- G1 transforms: p is a G1 with batch shape [B, n] ---
 
-    def _stage_bits(self, tag: str, gen: int):
-        """GLV bit tables of each stage's twiddles w^(pos n / 2h), pos < h."""
-        if tag not in self._g1_bits:
-            per_stage = []
+    def _stage_digits(self, tag: str):
+        """GLV digit tables of the twiddles w^(pos n / 2h) of stages 1..log n - 1:
+        (digits uint8 [log n - 1, 65, n/2], neg1, neg2 uint8 [log n - 1, n/2])
+        on the device, pos < h = 2^s and zero padding for pos >= h."""
+        if tag not in self._g1_digits:
+            gen = self.generator if tag == "fwd" else self.generator_inv
+            half = max(self.size // 2, 1)
+            stages = max(self.log_size - 1, 0)
+            digits = np.zeros((stages, GLV_NBITS // 2, half), dtype=np.uint8)
+            neg1 = np.zeros((stages, half), dtype=np.uint8)
+            neg2 = np.zeros((stages, half), dtype=np.uint8)
             for s in range(1, self.log_size):
                 h = 1 << s
                 step = pow(gen, self.size >> (s + 1), R_SCALAR)
-                tw = [pow(step, pos, R_SCALAR) for pos in range(h)]
-                b1, n1, b2, n2 = C.glv_bits_host(tw)
-                per_stage.append(
-                    tuple(torch.from_numpy(a).to(self.device) for a in (b1, n1, b2, n2))
-                )
-            self._g1_bits[tag] = per_stage
-        return self._g1_bits[tag]
+                d, n1, n2 = C.glv_digits_host([pow(step, pos, R_SCALAR) for pos in range(h)])
+                digits[s - 1, :, :h], neg1[s - 1, :h], neg2[s - 1, :h] = d, n1, n2
+            self._g1_digits[tag] = tuple(
+                torch.from_numpy(a).to(self.device) for a in (digits, neg1, neg2)
+            )
+        return self._g1_digits[tag]
 
-    def _dit_g1(self, p: C.G1, tag: str, gen: int) -> C.G1:
+    def _dit_g1(self, p: C.G1, tag: str) -> C.G1:
+        """The DIT transform of bit-reversed p: one `g1_fft` launch for CUDA
+        tensors, `_dit_g1_plain` for CPU tensors."""
+        if p.x.device.type == "cpu":
+            return self._dit_g1_plain(p, tag)
+        b, n = p.batch_shape
+        if n != self.size:
+            raise ValueError(f"expected size {self.size}, got {n}")
+        if n == 1:
+            return p
+        return C.G1(*K.g1_fft(p, *self._stage_digits(tag)))
+
+    def _dit_g1_plain(self, p: C.G1, tag: str) -> C.G1:
+        """The plain version of `g1_fft` on any device: stage by stage, each
+        twiddle multiplication a plain GLV ladder over the digit tables."""
         b, n = p.batch_shape
         if n != self.size:
             raise ValueError(f"expected size {self.size}, got {n}")
         p = C._map(bit_reverse_permutation, p)
         if n == 1:
             return p
+        digits, neg1, neg2 = self._stage_digits(tag)
         nl = C.FP.nlimbs
         for s in range(self.log_size):
             h = 1 << s
-            v = C._map(lambda c: c.reshape(nl, b, n // (2 * h), 2, h), p)
+            groups = n // (2 * h)
+            v = C._map(lambda c: c.reshape(nl, b, groups, 2, h), p)
             a = C._map(lambda c: c[:, :, :, 0], v)
             t = C._map(lambda c: c[:, :, :, 1], v)
             if s > 0:
-                b1, n1, b2, n2 = self._stage_bits(tag, gen)[s - 1]
-                groups = n // (2 * h)
-                nb = b1.shape[0]
+                nd = digits.shape[1]
                 t = C.scalar_mul_glv(
                     t,
-                    b1[:, None, None, :].expand(nb, b, groups, h),
-                    n1.expand(b, groups, h),
-                    b2[:, None, None, :].expand(nb, b, groups, h),
-                    n2.expand(b, groups, h),
+                    digits[s - 1, :, None, None, :h].expand(nd, b, groups, h),
+                    neg1[s - 1, :h].expand(b, groups, h),
+                    neg2[s - 1, :h].expand(b, groups, h),
+                    plain=True,
                 )
-            plus = C.add(a, t)
-            minus = C.add(a, C.neg(t))
+            plus = C.add_plain(a, t)
+            minus = C.add_plain(a, C.neg(t))
             p = C._map(lambda cp, cm: torch.stack((cp, cm), dim=3).reshape(nl, b, n), plus, minus)
         return p
 
     def fft_g1(self, p: C.G1) -> C.G1:
         """Group FFT: out[i] = sum_j roots[i]^j p[j]."""
-        return self._dit_g1(p, "fwd", self.generator)
+        return self._dit_g1(p, "fwd")
 
     def ifft_g1(self, p: C.G1, take_n: int | None = None, prescaled: bool = False) -> C.G1:
         """Inverse group FFT, optionally truncated to the first `take_n`
         outputs; with `prescaled` the final 1/n scalar multiplication is
         skipped (the caller folded 1/n into the scalars that made `p`)."""
-        out = self._dit_g1(p, "inv", self.generator_inv)
+        out = self._dit_g1(p, "inv")
         if take_n is not None:
             out = C._map(lambda c: c[..., :take_n].contiguous(), out)
         if prescaled:
             return out
-        b1, n1, b2, n2 = (
-            torch.from_numpy(a).to(self.device) for a in C.glv_bits_host([self.size_inv])
-        )
+        digits, n1, n2 = (torch.from_numpy(a).to(self.device) for a in C.glv_digits_host([self.size_inv]))
         batch = tuple(out.batch_shape)
-        nb = b1.shape[0]
+        ones = (1,) * len(batch)
         return C.scalar_mul_glv(
             out,
-            b1.reshape((nb,) + (1,) * len(batch)).expand((nb,) + batch),
-            n1.reshape((1,) * len(batch)).expand(batch),
-            b2.reshape((nb,) + (1,) * len(batch)).expand((nb,) + batch),
-            n2.reshape((1,) * len(batch)).expand(batch),
+            digits.reshape((digits.shape[0],) + ones).expand((digits.shape[0],) + batch),
+            n1.reshape(ones).expand(batch),
+            n2.reshape(ones).expand(batch),
         )

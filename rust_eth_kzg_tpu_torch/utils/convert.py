@@ -30,7 +30,7 @@ def _ints_from_limbs15(arr: np.ndarray) -> list:
     return out
 
 
-def limbs15_to_port(arr, spec: F.FieldSpec, device="cpu") -> torch.Tensor:
+def limbs15_to_port(arr, spec: F.FieldSpec, device) -> torch.Tensor:
     """JAX Montgomery limbs [L15, *batch] -> port Montgomery limbs [L, *batch]."""
     arr = np.asarray(arr)
     batch = arr.shape[1:]
@@ -41,13 +41,13 @@ def limbs15_to_port(arr, spec: F.FieldSpec, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(out)).to(device)
 
 
-def g1_from_jax(x, y, z, device="cpu") -> C.G1:
+def g1_from_jax(x, y, z, device) -> C.G1:
     """JAX projective G1 coordinates [26, *batch] -> port G1."""
     return C.G1(*(limbs15_to_port(c, F.FP, device) for c in (x, y, z)))
 
 
 def fixed_base_tables_from_jax(
-    table_rows, base_inf, window: int, chains: int, wpc: int, instance_ndim: int, device="cpu"
+    table_rows, base_inf, window: int, chains: int, wpc: int, instance_ndim: int, device
 ) -> M.FixedBaseMSM:
     """JAX `FixedBaseMSM.table_rows` [*inst, CP, 4 * 26, D] (rows x_hi, y_hi,
     x_lo, y_lo of 8-bit limb halves) -> the port's affine tables."""

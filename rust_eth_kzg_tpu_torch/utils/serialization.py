@@ -21,19 +21,22 @@ _R_WORDS = np.array(
 
 
 def _check_canonical_scalars(raw: np.ndarray) -> None:
-    """raw: [N, 32] uint8 big-endian; raises on the first scalar >= r."""
+    """raw: [N, 32] uint8 big-endian. Scans word 0 of every scalar, then word
+    1, and so on, and raises at the first scalar that exceeds r in the word
+    scanned (its earlier words equal r's); then at the first scalar equal to r."""
     words = np.ascontiguousarray(raw).view(">u8").astype(np.uint64)  # [N, 4]
-    decided_lt = np.zeros(len(words), dtype=bool)
-    decided_gt = np.zeros(len(words), dtype=bool)
+    lt = np.zeros(len(words), dtype=bool)  # below r in an earlier word
     for i in range(4):
         w = words[:, i]
-        undecided = ~(decided_lt | decided_gt)
-        decided_gt |= undecided & (w > _R_WORDS[i])
-        decided_lt |= undecided & (w < _R_WORDS[i])
-    ge = ~decided_lt  # greater, or equal in every word
-    if ge.any():
-        idx = int(np.argmax(ge))
-        raise SerializationError(f"scalar at index {idx} is not canonical (>= field modulus)")
+        gt = ~lt & (w > _R_WORDS[i])
+        if gt.any():
+            idx = int(np.argmax(gt))
+            raise SerializationError(f"scalar at index {idx} is not canonical (>= field modulus)")
+        lt |= w < _R_WORDS[i]
+    eq = ~lt
+    if eq.any():
+        idx = int(np.argmax(eq))
+        raise SerializationError(f"scalar at index {idx} is not canonical (== field modulus)")
 
 
 def deserialize_scalars(data: bytes, expected_len: int | None = None) -> np.ndarray:

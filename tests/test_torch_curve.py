@@ -217,8 +217,8 @@ def test_scalar_mul_glv_matches_host():
     a[2] = None
     rng = np.random.default_rng(12)
     ks = [0, 1, R_SCALAR - 1, int(rng.integers(0, 2**63)) ** 4 % R_SCALAR, 7, 2**200 + 3]
-    b1, n1, b2, n2 = (torch.from_numpy(t) for t in C.glv_bits_host(ks))
-    got = C.points_from_device(C.scalar_mul_glv(_port_g1(_projective(a, 13)), b1, n1, b2, n2))
+    digits, n1, n2 = (torch.from_numpy(t) for t in C.glv_digits_host(ks))
+    got = C.points_from_device(C.scalar_mul_glv(_port_g1(_projective(a, 13)), digits, n1, n2))
     assert got == [B.g1_mul(x, k) if x is not None else None for x, k in zip(a, ks)]
     assert C.points_from_device(C.glv_endomorphism(C.points_to_device(a, "cpu"))) == [
         None if x is None else (x[0] * GLV_BETA % P, x[1]) for x in a
@@ -241,8 +241,8 @@ def test_add_double_on_lazy_jax_points():
 
     ja, jb = lifted(_projective(a, 16)), lifted(_projective(b, 17))
     assert max(v for c in (*ja, *jb) for v in JL.limbs_to_ints(np.asarray(c))) >= 3 * P
-    pa = convert.g1_from_jax(*(np.asarray(c) for c in ja))
-    pb = convert.g1_from_jax(*(np.asarray(c) for c in jb))
+    pa = convert.g1_from_jax(*(np.asarray(c) for c in ja), "cpu")
+    pb = convert.g1_from_jax(*(np.asarray(c) for c in jb), "cpu")
     with jax.disable_jit():
         want_add = JC.add_values(ja, jb)
         want_double = JC.double_values(ja)
@@ -256,6 +256,6 @@ def test_g1_from_jax_carries_points():
     pa = _projective(a, 14)
     with jax.disable_jit():
         jp = JC.double_values(_jax_g1(pa))  # lazily reduced JAX coordinates
-    port = convert.g1_from_jax(*(np.asarray(c) for c in jp))
+    port = convert.g1_from_jax(*(np.asarray(c) for c in jp), "cpu")
     assert _port_coords(port) == _jax_coords(jp)
     assert C.points_from_device(port) == [B.g1_add(x, x) for x in a]

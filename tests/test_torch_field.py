@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from rust_eth_kzg_tpu.ops import field as JF
+from rust_eth_kzg_tpu_torch.constants import GLV_BETA
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import limbs as L
@@ -85,7 +86,7 @@ def test_mont_mul_on_lazy_jax_inputs(spec, jspec):
     ja, jb = lifted(a), lifted(b)
     std_a, std_b = _jax_std(jspec, ja), _jax_std(jspec, jb)
     want = _jax_std(jspec, JF.mont_mul(jspec, jnp.asarray(ja), jnp.asarray(jb)))
-    pa, pb = convert.limbs15_to_port(ja, spec), convert.limbs15_to_port(jb, spec)
+    pa, pb = convert.limbs15_to_port(ja, spec, "cpu"), convert.limbs15_to_port(jb, spec, "cpu")
     assert _port_std(spec, pa) == std_a and _port_std(spec, pb) == std_b
     assert _port_std(spec, F.mont_mul(spec, pa, pb)) == want == [x * y % m for x, y in zip(std_a, std_b)]
 
@@ -178,6 +179,7 @@ def test_cuda_constants_match_python():
     assert arr("FP_ONE") == fp.r_mod_p and arr("FR_ONE") == fr.r_mod_p
     assert arr("FP_EXP") == fp.modulus - 2 and arr("FR_EXP") == fr.modulus - 2
     assert arr("FP_B3") == 12 * fp.r_mod_p % fp.modulus
+    assert arr("FP_BETA") == GLV_BETA * fp.r_mod_p % fp.modulus
     n0 = [int(v, 16) for v in re.findall(r"N0 = (0x[0-9a-f]+)u", src)]
     assert n0 == [fp.n0, fr.n0]
 

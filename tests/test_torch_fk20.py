@@ -97,7 +97,8 @@ def _carried_tables(jax_prover):
     for t in (jax_prover.tables, jax_prover.commit_tables):
         out.append(
             convert.fixed_base_tables_from_jax(
-                np.asarray(t.table_rows), np.asarray(t.base_inf), t.window, t.chains, t.wpc, t.instance_ndim
+                np.asarray(t.table_rows), np.asarray(t.base_inf), t.window, t.chains, t.wpc, t.instance_ndim,
+                "cpu",
             )
         )
     return tuple(out)

@@ -88,3 +88,25 @@ def test_batch_inverse_kernel(device, n):
         z = _field(spec, n, 7, device)
         assert torch.equal(K.batch_inverse(spec, z), F.batch_inverse_plain(spec, z))
 
+
+
+@pytest.mark.parametrize("rows,n", [(1, 16), (1, 128), (8, 128), (64, 128)])
+def test_g1_fft_kernel(device, rows, n):
+    """The fused G1 transform against the plain stage-by-stage route, both
+    directions, limb for limb: points with identity lanes and equal lanes,
+    row 0 the identity in its second half (the proof transform's padding)
+    and, where there is one, row 1 all identity."""
+    dom = ntt.Domain(n, device)
+    p = C._map(lambda c: c.reshape(12, rows, n).clone(), _points(rows * n, 10 + rows, device))
+    ident = C.identity((n,), device)
+    for c, ic in zip(p, ident):
+        c[:, 0, n // 2 :] = ic[:, n // 2 :]
+        if rows > 1:
+            c[:, 1] = ic
+    for tag in ("fwd", "inv"):
+        before = dict(K.LAUNCHES)
+        got = dom._dit_g1(p, tag)
+        assert K.LAUNCHES["g1_fft"] == before["g1_fft"] + 1
+        assert all(K.LAUNCHES[k] == before[k] for k in ("g1_add", "g1_double"))
+        want = dom._dit_g1_plain(p, tag)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

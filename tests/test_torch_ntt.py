@@ -3,7 +3,9 @@
 fft / ifft are compared exactly with the JAX package's Domain on the same
 inputs. The G1 transforms are held against a host DFT over points: the JAX
 G1-FFT takes minutes to compile on the CPU (its 16-point form is compared
-with JAX through the FK20 tables in test_torch_fk20.py).
+with JAX through the FK20 tables in test_torch_fk20.py). The digit tables
+that the plain route and the `g1_fft` kernel both read are held against
+`curve.glv_bits_host` of the stage twiddles.
 """
 
 import jax.numpy as jnp
@@ -13,7 +15,7 @@ import torch
 
 from rust_eth_kzg_tpu.ops import field as JF
 from rust_eth_kzg_tpu.ops import ntt as JN
-from rust_eth_kzg_tpu_torch.constants import R_SCALAR
+from rust_eth_kzg_tpu_torch.constants import GLV_NBITS, R_SCALAR
 from rust_eth_kzg_tpu_torch.ops import curve as C
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import ntt
@@ -93,3 +95,52 @@ def test_ifft_g1_take_n_prescaled_matches_host_dft():
     scaled = C.points_from_device(small.ifft_g1(p4))
     want = _g1_dft(pts[:4], small.generator_inv, 4)
     assert scaled == [B.g1_mul(q, small.size_inv) if q else None for q in want]
+
+
+@pytest.mark.parametrize("n", [16, 128])
+@pytest.mark.parametrize("tag", ["fwd", "inv"])
+def test_stage_digits_match_glv_bits(n, tag):
+    dom = ntt.Domain(n, "cpu")
+    digits, neg1, neg2 = (t.numpy() for t in dom._stage_digits(tag))
+    stages, half = dom.log_size - 1, n // 2
+    assert digits.shape == (stages, GLV_NBITS // 2, half) and digits.dtype == np.uint8
+    assert neg1.shape == neg2.shape == (stages, half) and neg1.dtype == np.uint8
+    gen = dom.generator if tag == "fwd" else dom.generator_inv
+    for s in range(1, dom.log_size):
+        h = 1 << s
+        step = pow(gen, n >> (s + 1), R_SCALAR)
+        b1, n1, b2, n2 = C.glv_bits_host([pow(step, pos, R_SCALAR) for pos in range(h)])
+        d1 = 2 * b1[0::2].astype(int) + b1[1::2]
+        d2 = 2 * b2[0::2].astype(int) + b2[1::2]
+        assert np.array_equal(digits[s - 1, :, :h], 4 * d1 + d2)
+        assert np.array_equal(neg1[s - 1, :h], n1) and np.array_equal(neg2[s - 1, :h], n2)
+        assert not digits[s - 1, :, h:].any() and not neg1[s - 1, h:].any() and not neg2[s - 1, h:].any()
+
+
+def _dft_of_multiples(ks, root, n_out):
+    """The host DFT of the points k_j G, from their scalars: out[i] =
+    (sum_j root^(i j) k_j) G, one host multiplication per output."""
+    out = []
+    for i in range(n_out):
+        k = sum(pow(root, i * j, R_SCALAR) * kj for j, kj in enumerate(ks)) % R_SCALAR
+        out.append(B.g1_mul(B.G1_GEN, k) if k else None)
+    return out
+
+
+def test_g1_fft_16_matches_host_dft():
+    """The plain route at 16 points, both directions, on two rows: random
+    points with identity inputs and two equal inputs, and a row that is
+    the identity but for two points (the proof transform's padding)."""
+    n = 16
+    rng = np.random.default_rng(3)
+    ks = [int(v) for v in rng.integers(1, 2**62, size=n)]
+    ks[6] = ks[9] = 0
+    ks[12] = ks[4]
+    pad = [ks[0], ks[5]] + [0] * (n - 2)
+    pts = [B.g1_mul(B.G1_GEN, k) if k else None for k in ks + pad]
+    dom = ntt.Domain(n, "cpu")
+    p = C._map(lambda c: c.reshape(12, 2, n), C.points_to_device(pts, "cpu"))
+    fwd = C.points_from_device(dom.fft_g1(p))
+    assert fwd == _dft_of_multiples(ks, dom.generator, n) + _dft_of_multiples(pad, dom.generator, n)
+    inv = C.points_from_device(dom.ifft_g1(p, take_n=8, prescaled=True))
+    assert inv == _dft_of_multiples(ks, dom.generator_inv, 8) + _dft_of_multiples(pad, dom.generator_inv, 8)
