@@ -8,9 +8,13 @@ native pairing library from `csrc/host/`) and runs, printing one JSON line
 per phase:
   1. build           nvcc time, registers and spills of every kernel;
   2. kernels         each kernel against its plain torch version on the card,
-                     exactly (integer arithmetic: tolerance 0); for g1_fft
-                     also the latency floor of its dependent chain (one-lane
-                     g1_double launches replayed from a CUDA graph);
+                     exactly (integer arithmetic: tolerance 0); the Fp/Fr
+                     core (mont_mul) also on edge operands against Python
+                     integers, and its chain probe: the latency of one
+                     dependent product (one lane, k = 1 and k = 4,096
+                     squarings in a row) and the products per second over
+                     2^23 Fp lanes; for g1_fft and g1_decompress the
+                     critical path of their dependent chains;
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
                      prove path: compute_cells_and_kzg_proofs_batch on the
                      zero blob and seven seeded random blobs (zero-blob,
@@ -27,7 +31,12 @@ per phase:
                      just before its call and read just after: every kernel
                      a path runs must have launched on it, the prover's two
                      G1 transforms as 2 g1_fft launches with at most 100
-                     g1_add + g1_double launches beside them;
+                     g1_add + g1_double launches beside them, the verifier's
+                     decompression as 1 g1_decompress launch with at most 20
+                     mont_mul launches in the whole call; every kernel is
+                     launched on some path or runs inside one that is and
+                     names it in its `replaces` (g1_add_mixed in
+                     g1_decompress);
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py);
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -153,6 +163,52 @@ def g1_fft_latency_floor(torch, K, C, F, device, launches=200):
             "critical_path_ms": rounds * per_product, "critical_path_diff_ms": rounds * (add - dbl) / 5}
 
 
+# Montgomery products of one g1_decompress lane (csrc/g1_decompress.cu):
+# x R, x^3 (2), the root's table (1 squaring, 15 products), 375 squarings and
+# 66 products, y^2 and y's standard form; then the subgroup ladder, 128
+# doublings of 9 products and 48 mixed additions of 13; and 3 to compare.
+# The dependency depth of a live lane:
+# 460 products to the root, 1 for the sign, 3 per doubling and 3 per
+# addition, 2 for the comparison.
+DECOMPRESS_ROOT_PRODUCTS = 1 + 2 + 16 + 375 + 66 + 2
+DECOMPRESS_LIVE_PRODUCTS = DECOMPRESS_ROOT_PRODUCTS + 128 * 9 + 48 * 13 + 3
+DECOMPRESS_DEPTH = 460 + 1 + 128 * 3 + 48 * 3 + 2
+CHAIN_LONG = 4096
+
+
+def chain_probe(torch, spec, run, device, throughput_lanes=1 << 23, throughput_k=8):
+    """The latency of one dependent Montgomery product: `run(x, k)` (the chain
+    probe: k squarings in a row on every lane of x) on one lane at k = 1 and
+    k = CHAIN_LONG, each replayed from a CUDA graph, (long - short) /
+    (CHAIN_LONG - 1); and, for Fp, products per second over
+    `throughput_lanes` lanes at k = `throughput_k` against the IMAD bound.
+    Checks the squarings against Python integers."""
+    vals = _random_ints(spec.modulus, 64, SEED + 40)
+    x64 = torch.from_numpy(spec.to_mont_host(vals)).to(device)
+    for k in (1, 37):
+        got = spec.from_mont_host(run(x64, k).cpu().numpy())
+        check(got == [pow(v, 1 << k, spec.modulus) for v in vals], f"chain probe {spec.name} k = {k}")
+    one = x64[:, :1].contiguous()
+    short = _one_lane_ms(torch, lambda: run(one, 1), 200)
+    long = _one_lane_ms(torch, lambda: run(one, CHAIN_LONG), 10)
+    out = {"chain_1_ms": short, f"chain_{CHAIN_LONG}_ms": long,
+           "product_latency_us": (long - short) / (CHAIN_LONG - 1) * 1e3}
+    if spec.name == "fp" and throughput_lanes:
+        g = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randint(0, 2**31, (spec.nlimbs, throughput_lanes), generator=g, device=device, dtype=torch.int32)
+        x[-1] %= spec.modulus >> (32 * (spec.nlimbs - 1))  # top limb below p's: every value < p
+        ms = cuda_ms(lambda: run(x, throughput_k), 5)
+        products = throughput_lanes * throughput_k
+        head = x[:, :16].cpu().numpy()
+        got = spec.from_mont_host(run(x, throughput_k)[:, :16].cpu().numpy())
+        check(got == [pow(v, 1 << throughput_k, spec.modulus) for v in spec.from_mont_host(head)],
+              "chain probe over many lanes")
+        out.update({"throughput_lanes": throughput_lanes, "throughput_k": throughput_k, "throughput_ms": ms,
+                    "products_per_s": products / (ms / 1e3),
+                    "imad_bound_products_per_s": IMAD_PER_S / mont_mul_imad(spec.nlimbs)})
+    return out
+
+
 def bound(imad, nbytes):
     t_ops = imad / IMAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -225,8 +281,11 @@ def _max_abs_err(got, want):
 def phase_kernels(torch, K, F, C, device):
     """Each kernel at a main-path shape (timed) and at the extra shapes of the
     port's test list, against its plain version on the same card inputs."""
+    import numpy as np
+
     from rust_eth_kzg_tpu_torch.ops import limbs as LB
     from rust_eth_kzg_tpu_torch.ops import ntt
+    from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands
 
     t0 = time.perf_counter()
     FR, FP = F.FR, F.FP
@@ -272,6 +331,18 @@ def phase_kernels(torch, K, F, C, device):
         b[:, :4] = torch.from_numpy(LB.ints_to_limbs([spec.modulus - 1] * 4, spec.nlimbs)).to(device)
         compare(f"mont_mul_{spec.name}", lambda: K.mont_mul(spec, a, b),
                 lambda: F.mont_mul_plain(spec, a, b), 0, 0, main=False)
+        # the edge operands of the card test, against Python integers
+        ea, eb = edge_operands(spec, n_random=4096)
+        ta = torch.from_numpy(LB.ints_to_limbs(ea, spec.nlimbs)).to(device)
+        tb = torch.from_numpy(LB.ints_to_limbs(eb, spec.nlimbs)).to(device)
+        got = LB.limbs_to_ints(K.mont_mul(spec, ta, tb).cpu().numpy())
+        r_inv = pow(spec.r, -1, spec.modulus)
+        check(got == [x * y * r_inv % spec.modulus for x, y in zip(ea, eb)],
+              f"mont_mul {spec.name} on the edge operands equals Python integers")
+        compare(f"mont_mul_edge_{spec.name}", lambda: K.mont_mul(spec, ta, tb),
+                lambda: F.mont_mul_plain(spec, ta, tb), 0, 0, main=False)
+        probe = chain_probe(torch, spec, lambda x, k: K.mont_mul_chain(spec, x, k), device)
+        results["mont_mul"].update({f"{spec.name}_{k}": v for k, v in probe.items()})
 
     # field_butterfly: one stage of the 8192-point cells NTT, [8, 1, 8192]
     dom = ntt.Domain(8192, device)
@@ -375,6 +446,42 @@ def phase_kernels(torch, K, F, C, device):
                 rows * g1_fft_products(128) * mont_mul_imad(12), reps=5,
                 main=record is not False, record=record or None, plain_reps=0)
     results["g1_fft"].update(g1_fft_latency_floor(torch, K, C, F, device))
+    latency_ms = results["mont_mul"]["fp_product_latency_us"] / 1e3
+    results["g1_fft"]["critical_path_probe_ms"] = results["g1_fft"]["product_rounds"] * latency_ms
+
+    # g1_decompress: a 1,024-cell verify's decompression (8 commitments and
+    # 1,024 proofs in 2 x 1,024 lanes, the rest identity padding, as
+    # FK20Verifier.prepare lays them out), timed; 129 and 1,032 lanes,
+    # checked. Identity, both sort bits, x off the curve and curve points
+    # outside the subgroup in every run (tests/test_torch_kernels_cuda.py).
+    from rust_eth_kzg_tpu_torch.ops import decompress as D
+
+    for n, main in ((2048, True), (129, False), (1032, False)):
+        (xs, sort, inf), kinds = decompress_inputs(1032 if main else n, SEED + 50 + n)
+        if main:
+            lanes = np.r_[0:8, 1024:2048]
+            xs_p, sort_p, inf_p = np.zeros((12, n), np.int32), np.zeros(n, bool), np.ones(n, bool)
+            xs_p[:, lanes], sort_p[lanes], inf_p[lanes] = xs, sort, inf
+            xs, sort, inf = xs_p, sort_p, inf_p
+        x, sb, inf_t = (torch.from_numpy(a).to(device) for a in (xs, sort, inf))
+        check(bool(inf_t.any()) and bool(sb.any()) and bool((~sb & ~inf_t).any())
+              and {"off_curve", "not_in_subgroup"} <= set(kinds), "g1_decompress inputs hold every kind of lane")
+
+        def plain():
+            pt, on, sub = D.decompress_g1_plain(x, sb, inf_t)
+            return (*pt, on.to(torch.uint8), sub.to(torch.uint8))
+
+        # the work the function needs: x and the two flag bytes in, the point
+        # and two flag bytes out, a lane; products on live lanes only (an
+        # identity lane's output is the fixed (0 : 1 : 0))
+        live = int((~inf_t).sum().item())
+        compare("g1_decompress", lambda: K.g1_decompress(x, sb, inf_t), plain, n * (48 + 2 + 3 * 48 + 2),
+                live * DECOMPRESS_LIVE_PRODUCTS * mont_mul_imad(12), reps=10, main=main, plain_reps=0)
+    results["g1_decompress"].update({
+        "products_per_live_lane": DECOMPRESS_LIVE_PRODUCTS, "critical_path_products": DECOMPRESS_DEPTH,
+        "critical_path_probe_ms": DECOMPRESS_DEPTH * latency_ms,
+        "serial_path_probe_ms": DECOMPRESS_LIVE_PRODUCTS * latency_ms,
+    })
 
     # batch_inverse: the proofs of one blob, Fp [12, 128] (timed); 333 lanes of
     # both fields and the ragged 32 x 640 Fr case
@@ -496,37 +603,6 @@ def phase_recover(torch, K, ctx, out):
     return launches
 
 
-def _not_in_subgroup_bytes(seed):
-    """Compressed bytes of a curve point outside the prime-order subgroup."""
-    import random
-
-    from rust_eth_kzg_tpu_torch.constants import P
-    from rust_eth_kzg_tpu_torch.utils import bls_host as B
-
-    rnd = random.Random(seed)
-    while True:
-        x = rnd.randrange(P)
-        y = B.fp_sqrt(x * x * x + 4)
-        if y is not None and not B.g1_in_subgroup((x, y)):
-            return B.g1_compress((x, y))
-
-
-def _off_curve_bytes(seed):
-    """Compressed bytes of an x with no point on the curve."""
-    import random
-
-    from rust_eth_kzg_tpu_torch.constants import P
-    from rust_eth_kzg_tpu_torch.utils import bls_host as B
-
-    rnd = random.Random(seed)
-    while True:
-        x = rnd.randrange(P)
-        if B.fp_sqrt(x * x * x + 4) is None:
-            data = bytearray(x.to_bytes(48, "big"))
-            data[0] |= 0x80
-            return bytes(data)
-
-
 def verify_batch(out, comms, nblobs):
     """Every cell of the first `nblobs` blobs as one verify batch."""
     commitments = [comms[b] for b in range(nblobs) for _ in range(128)]
@@ -540,6 +616,7 @@ def phase_verify(torch, K, ctx, blobs, out):
     """Accept the port's proofs (128 and 1,024 cells; the latter gated) and
     reject four tampered 128-cell batches."""
     from rust_eth_kzg_tpu_torch.errors import InvalidProofError, SerializationError
+    from rust_eth_kzg_tpu_torch.utils.edge_inputs import not_in_subgroup_bytes, off_curve_bytes
 
     t0 = time.perf_counter()
     comms = [ctx.blob_to_kzg_commitment(b) for b in blobs]
@@ -559,8 +636,8 @@ def phase_verify(torch, K, ctx, blobs, out):
     changed[9] = _bump_first_scalar(changed[9])
     errors["changed_cell"] = expect_raises(InvalidProofError, "a changed cell",
                                            ctx.verify_cell_kzg_proof_batch, c, i, changed, proofs)
-    for name, bad_point, pos in (("proof_not_in_subgroup", _not_in_subgroup_bytes(SEED), 3),
-                                 ("proof_off_curve", _off_curve_bytes(SEED), 4)):
+    for name, bad_point, pos in (("proof_not_in_subgroup", not_in_subgroup_bytes(random.Random(SEED)), 3),
+                                 ("proof_off_curve", off_curve_bytes(random.Random(SEED)), 4)):
         bad = list(proofs)
         bad[pos] = bad_point
         errors[name] = expect_raises(SerializationError, name, ctx.verify_cell_kzg_proof_batch, c, i, cells, bad)
@@ -620,7 +697,7 @@ KERNEL_FUNCTIONS = {
     "g1_add_affine": "g1_add_affine_kernel", "g1_add_mixed": "g1_add_mixed_kernel",
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
     "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
-    "g1_fft": "g1_fft_kernel",
+    "g1_fft": "g1_fft_kernel", "g1_decompress": "g1_decompress_kernel",
 }
 
 
@@ -683,7 +760,9 @@ def phase_timing(torch, K, ctx, card, out, comms):
         calls[f"prove_B{b}"] = r
     for first, nblobs in ((1, 1), (0, 8)):
         args = verify_batch(out[first:], comms[first:], nblobs)
-        calls[f"verify_{128 * nblobs}"] = measure_call(torch, K, lambda: ctx.verify_cell_kzg_proof_batch(*args))
+        r = measure_call(torch, K, lambda: ctx.verify_cell_kzg_proof_batch(*args))
+        check(r["launches"]["g1_decompress"] == 1, f"verify_{128 * nblobs}: 1 g1_decompress launch a call")
+        calls[f"verify_{128 * nblobs}"] = r
     rng = np.random.default_rng(SEED + 300)
     for b in (1, 8):
         src = out[1:2] if b == 1 else out
@@ -801,13 +880,14 @@ def main() -> int:
             "verify": ("verify_cell_kzg_proof_batch, 1,024 cells of 8 blobs", verify_launches),
         }
         emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
-        # every kernel each path runs launched on it; g1_add_mixed runs only
-        # in the verifier's subgroup check, g1_fft only in the prover's two
-        # G1 transforms (prove, and recover's re-prove)
+        # every kernel each path runs launched on it; g1_decompress runs only
+        # in the verifier (its subgroup ladder holds g1_add_mixed's work),
+        # g1_fft only in the prover's two G1 transforms (prove, and recover's
+        # re-prove)
         expected = {
-            "prove": set(K.KERNELS) - {"g1_add_mixed"},
-            "recover": set(K.KERNELS) - {"g1_add_mixed"},
-            "verify": set(K.KERNELS) - {"g1_fft"},
+            "prove": set(K.KERNELS) - {"g1_add_mixed", "g1_decompress"},
+            "recover": set(K.KERNELS) - {"g1_add_mixed", "g1_decompress"},
+            "verify": set(K.KERNELS) - {"g1_fft", "g1_add_mixed"},
         }
         for path, (_, counts) in paths.items():
             missing = sorted(k for k in expected[path] if counts[k] <= 0)
@@ -819,8 +899,17 @@ def main() -> int:
             check(counts["g1_fft"] == 2, f"{path}: 2 g1_fft launches expected: {counts}")
             check(counts["g1_add"] + counts["g1_double"] <= 100,
                   f"{path}: at most 100 g1_add + g1_double launches expected: {counts}")
-        check(all(any(n[k] > 0 for _, n in paths.values()) for k in K.KERNELS),
-              "every kernel launched on some path")
+        # the verifier's decompression is one fused launch: the square root's
+        # products and the subgroup ladder no longer launch one by one
+        counts = paths["verify"][1]
+        check(counts["g1_decompress"] == 1, f"verify: 1 g1_decompress launch expected: {counts}")
+        check(counts["mont_mul"] <= 20, f"verify: at most 20 mont_mul launches expected: {counts}")
+        # every kernel launched on some path, or its work runs inside a
+        # launched kernel whose `replaces` names its TPU kernel
+        launched = {k for k in K.KERNELS if any(n[k] > 0 for _, n in paths.values())}
+        for k in sorted(set(K.KERNELS) - launched):
+            inside = [j for j in launched if K.KERNELS[k][2] in K.KERNELS[j][2]]
+            check(inside, f"kernel {k} launched on no path and runs inside no launched kernel")
         phase_mainnet_oracle(torch, api, C, device)
         calls = phase_timing(torch, K, ctx, card, out, comms)
     except CheckFailed as exc:
@@ -843,10 +932,9 @@ def main() -> int:
         if wide:
             row.update({"wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
                         "wide_bound_ms": wide["bound_ms"], "wide_bound_by": wide["bound_by"]})
-        for key in ("g1_double_1lane_ms", "g1_add_1lane_ms", "product_latency_ms", "product_latency_diff_ms",
-                    "product_rounds", "critical_path_ms", "critical_path_diff_ms"):
-            if key in r:
-                row[key] = r[key]
+        for key, value in r.items():
+            if key not in row and key not in ("kernel_ms", "ok"):
+                row[key] = value
         summary.append(row)
     emit({"kernels": summary})
     print(smi, flush=True)

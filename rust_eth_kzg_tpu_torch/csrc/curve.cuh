@@ -159,15 +159,18 @@ __device__ __forceinline__ void g1_add_affine(G1& r, const uint32_t* x1, const u
                                               bool ainf, const uint32_t* x2,
                                               const uint32_t* y2, bool binf) {
   if (ainf || binf) {
-    const uint32_t* x = ainf ? x2 : x1;
-    const uint32_t* y = ainf ? y2 : y1;
     if (ainf && binf) {
       set_zero<L>(r.x);
       set_one<Fp>(r.y);
       set_zero<L>(r.z);
     } else {
-      copy<L>(r.x, x);
-      copy<L>(r.y, y);
+      // a select per limb, not a pointer select: that would put the
+      // operands in local memory
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        r.x[j] = ainf ? x2[j] : x1[j];
+        r.y[j] = ainf ? y2[j] : y1[j];
+      }
       set_one<Fp>(r.z);
     }
     return;

@@ -65,94 +65,154 @@ struct Fr {
   __device__ static __forceinline__ uint32_t exp(int i) { return FR_EXP[i]; }
 };
 
+// --- PTX carry chains ---
+// Every multi-word step below is a chain of sm_90 carry instructions
+// (add.cc / addc, sub.cc / subc, mad.lo.cc / madc.lo.cc / madc.hi.cc). The
+// carry flag is not a C++ value: it passes from one asm statement to the
+// next. Each statement is volatile, so the compiler keeps them in program
+// order, and nothing between two statements of a chain writes the flag
+// (ptxas maps the flag of each chain to its own carry registers and may
+// interleave independent chains). A statement without .cc ends a chain;
+// where its carry is dropped the bounds below prove it zero.
+
+// acc[j], acc[j + 1] = a[j] * bi (j even): the even-limb products, side by side
+template <int N>
+__device__ __forceinline__ void mul_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < N; j += 2)
+    asm volatile("mul.lo.u32 %0, %2, %3;\n\tmul.hi.u32 %1, %2, %3;"
+                 : "=r"(acc[j]), "=r"(acc[j + 1])
+                 : "r"(a[j]), "r"(bi));
+}
+
+// acc += sum over even j of a[j] bi W^j; the carry out is left in the flag
+template <int N>
+__device__ __forceinline__ void cmad_n(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+  asm volatile("mad.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+r"(acc[0]), "+r"(acc[1])
+               : "r"(a[0]), "r"(bi));
+#pragma unroll
+  for (int j = 2; j < N; j += 2)
+    asm volatile("madc.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.cc.u32 %1, %2, %3, %1;"
+                 : "+r"(acc[j]), "+r"(acc[j + 1])
+                 : "r"(a[j]), "r"(bi));
+}
+
+// acc = (acc >> 64) + sum over even j of a[j] bi W^j + the carry flag
+template <int N>
+__device__ __forceinline__ void madc_n_rshift(uint32_t* acc, const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < N - 2; j += 2)
+    asm volatile("madc.lo.cc.u32 %0, %2, %3, %4;\n\tmadc.hi.cc.u32 %1, %2, %3, %5;"
+                 : "=r"(acc[j]), "=r"(acc[j + 1])
+                 : "r"(a[j]), "r"(bi), "r"(acc[j + 2]), "r"(acc[j + 3]));
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, 0;\n\tmadc.hi.u32 %1, %2, %3, 0;"
+               : "=r"(acc[N - 2]), "=r"(acc[N - 1])
+               : "r"(a[N - 2]), "r"(bi));
+}
+
+// One CIOS step on the split accumulator T = even + W odd (even[j] at
+// weight W^j, odd[j] at W^(j + 1)): T = T / W + ai b, then T += mi p with
+// mi = T[0] (-p^-1) mod W, so that even[0] becomes 0. Dividing by W is a
+// change of roles: the caller swaps even and odd between steps, and the old
+// even array, shifted two words, becomes the new odd one (madc_n_rshift).
+// The even-limb and odd-limb products of a row are two carry chains with no
+// data between them, so neither waits on the other's carries.
+template <class F>
+__device__ __forceinline__ void mad_n_redc(uint32_t* even, uint32_t* odd, const uint32_t* b,
+                                           const uint32_t* m, uint32_t ai, bool first) {
+  constexpr int N = F::N;
+  if (first) {
+    mul_n<N>(odd, b + 1, ai);
+    mul_n<N>(even, b, ai);
+  } else {
+    asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(even[0]) : "r"(odd[1]));
+    madc_n_rshift<N>(odd, b + 1, ai);
+    cmad_n<N>(even, b, ai);
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(odd[N - 1]));
+  }
+  const uint32_t mi = even[0] * F::N0;
+  cmad_n<N>(odd, m + 1, mi);
+  cmad_n<N>(even, m, mi);
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(odd[N - 1]));
+}
+
 // out = (hi:t) - p if that is >= 0, else t. The value (hi:t) must be < 2p.
 template <class F>
 __device__ __forceinline__ void reduce_once(uint32_t* out, const uint32_t* t, uint32_t hi) {
   constexpr int N = F::N;
-  uint32_t d[N];
-  uint64_t borrow = 0;
+  uint32_t d[N], sign;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d[0]) : "r"(t[0]), "r"(F::mod(0)));
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t s = (uint64_t)t[j] - F::mod(j) - borrow;
-    d[j] = (uint32_t)s;
-    borrow = s >> 63;
-  }
-  const bool use_d = (hi != 0) || (borrow == 0);
+  for (int j = 1; j < N; ++j)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d[j]) : "r"(t[j]), "r"(F::mod(j)));
+  asm volatile("subc.u32 %0, %1, 0;" : "=r"(sign) : "r"(hi));  // all ones iff (hi:t) < p
+  const bool keep = sign == 0xffffffffu;
 #pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = use_d ? d[j] : t[j];
+  for (int j = 0; j < N; ++j) out[j] = keep ? t[j] : d[j];
 }
 
-// CIOS Montgomery product: out = a b R^-1 mod p, a < 2p, b < p, out < p.
-// out may alias a or b: it is written only after the last read.
+// Montgomery product out = a b R^-1 mod p, a < 2p, b < p, out < p: CIOS in
+// PTX carry chains over an even/odd split accumulator (the layout of
+// Supranational's sppark, ff/mont_t.cuh). Each step multiplies the row b by
+// one word of a. Bounds: after step i the state is t_i < b + p <= 2p, and
+// the step's sum before the division by W is W t_i < W 2p <= W^(N + 1) for
+// Fp (R > 4p) and for Fr (R > 2r) alike, so the N-word odd row never
+// carries out and no spare word is needed; a (the word operand) may be
+// anything below 2p. The result (a b + M p) / R < 2p (a b / R < 2p^2 / R < p)
+// takes one subtraction. out may alias a or b: it is written only at the end.
 template <class F>
 __device__ __forceinline__ void mont_mul(uint32_t* out, const uint32_t* a, const uint32_t* b) {
   constexpr int N = F::N;
-  uint32_t t[N + 2];
+  uint32_t x[N], y[N], m[N], even[N], odd[N];
 #pragma unroll
-  for (int j = 0; j < N + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = (uint64_t)a[i] * b[j] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * F::N0;
-    s = (uint64_t)m * F::mod(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      s = (uint64_t)m * F::mod(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+  for (int j = 0; j < N; ++j) {
+    x[j] = a[j];
+    y[j] = b[j];
+    m[j] = F::mod(j);
   }
-  reduce_once<F>(out, t, t[N]);
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    mad_n_redc<F>(even, odd, y, m, x[i], i == 0);
+    mad_n_redc<F>(odd, even, y, m, x[i + 1], false);
+  }
+  // t = T / W = even + (odd >> 32); odd[0] is 0 after the last step
+  asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(even[0]) : "r"(odd[1]));
+#pragma unroll
+  for (int j = 1; j < N - 1; ++j)
+    asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(even[j]) : "r"(odd[j + 1]));
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(even[N - 1]));
+  reduce_once<F>(out, even, 0);
 }
 
 // out = a + b mod p (a, b < p)
 template <class F>
 __device__ __forceinline__ void add(uint32_t* out, const uint32_t* a, const uint32_t* b) {
   constexpr int N = F::N;
-  uint32_t s[N];
-  uint64_t c = 0;
+  uint32_t s[N], hi;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(s[0]) : "r"(a[0]), "r"(b[0]));
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t v = (uint64_t)a[j] + b[j] + c;
-    s[j] = (uint32_t)v;
-    c = v >> 32;
-  }
-  reduce_once<F>(out, s, (uint32_t)c);
+  for (int j = 1; j < N; ++j)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(s[j]) : "r"(a[j]), "r"(b[j]));
+  asm volatile("addc.u32 %0, 0, 0;" : "=r"(hi));
+  reduce_once<F>(out, s, hi);
 }
 
 // out = a - b mod p (a, b < p)
 template <class F>
 __device__ __forceinline__ void sub(uint32_t* out, const uint32_t* a, const uint32_t* b) {
   constexpr int N = F::N;
-  uint32_t d[N];
-  uint64_t borrow = 0;
+  uint32_t d[N], mask;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d[0]) : "r"(a[0]), "r"(b[0]));
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t v = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = v >> 63;
-  }
-  const uint32_t mask = 0u - (uint32_t)borrow;  // add p back on underflow
-  uint64_t c = 0;
+  for (int j = 1; j < N; ++j)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d[j]) : "r"(a[j]), "r"(b[j]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(mask));  // all ones on underflow: add p back
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(out[0]) : "r"(d[0]), "r"(F::mod(0) & mask));
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint64_t v = (uint64_t)d[j] + (F::mod(j) & mask) + c;
-    out[j] = (uint32_t)v;
-    c = v >> 32;
-  }
+  for (int j = 1; j < N - 1; ++j)
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(out[j]) : "r"(d[j]), "r"(F::mod(j) & mask));
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(out[N - 1]) : "r"(d[N - 1]), "r"(F::mod(N - 1) & mask));
 }
 
 template <class F>

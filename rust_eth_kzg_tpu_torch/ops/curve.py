@@ -214,11 +214,13 @@ def is_identity(p: G1) -> torch.Tensor:
     return F.is_zero(FP, p.z)
 
 
-def equal(p: G1, q: G1) -> torch.Tensor:
-    """Projective equality x1 z2 == x2 z1 and y1 z2 == y2 z1, identity-aware."""
+def equal(p: G1, q: G1, plain: bool = False) -> torch.Tensor:
+    """Projective equality x1 z2 == x2 z1 and y1 z2 == y2 z1, identity-aware.
+    With `plain` the products are `mont_mul_plain` on any device."""
+    mul = F.mont_mul_plain if plain else F.mont_mul
     ip, iq = is_identity(p), is_identity(q)
-    ex = F.equal(FP, F.mont_mul(FP, p.x, q.z), F.mont_mul(FP, q.x, p.z))
-    ey = F.equal(FP, F.mont_mul(FP, p.y, q.z), F.mont_mul(FP, q.y, p.z))
+    ex = F.equal(FP, mul(FP, p.x, q.z), mul(FP, q.x, p.z))
+    ey = F.equal(FP, mul(FP, p.y, q.z), mul(FP, q.y, p.z))
     return (ip & iq) | (~(ip ^ iq) & ex & ey)
 
 
@@ -334,16 +336,18 @@ def scalar_mul_glv(p: G1, digits, neg1, neg2, plain: bool = False) -> G1:
     return acc
 
 
-def scalar_mul_static(q: G1Affine, k: int) -> G1:
+def scalar_mul_static(q: G1Affine, k: int, plain: bool = False) -> G1:
     """k q for a host integer k (the subgroup check's z^2 - 1): MSB-first
     double-and-add over k's bits, each addend q through `add_mixed`. k is
     known on the host, so a zero bit costs a doubling and no addition; the
-    point equals the JAX ladder's, which adds and selects at every bit."""
+    point equals the JAX ladder's, which adds and selects at every bit.
+    With `plain` the plain formulas run on any device."""
+    add_mixed_, double_ = (add_mixed_plain, double_plain) if plain else (add_mixed, double)
     acc = identity(q.x.shape[1:], q.x.device)
     for bit in bin(max(k, 0))[2:]:
-        acc = double(acc)
+        acc = double_(acc)
         if bit == "1":
-            acc = add_mixed(acc, q)
+            acc = add_mixed_(acc, q)
     return acc
 
 

@@ -2,7 +2,9 @@
 
 The byte-level format checks stay on the host (vectorized numpy, the
 reference's error taxonomy: `parse_compressed_g1_batch`); the field work
-runs batched on the device (`decompress_g1`):
+runs batched on the device (`decompress_g1`): on CUDA tensors one launch of
+the fused `g1_decompress` kernel (`csrc/g1_decompress.cu`), on CPU tensors
+its plain version `decompress_g1_plain`, which computes
 - the Fp square root as one fixed exponentiation rhs^((p+1)/4) (p = 3 mod 4);
 - the on-curve check: does the candidate square back to x^3 + 4;
 - the sign from the compression sort bit: y is the larger root iff its
@@ -23,10 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import B_COEFF, BLS_X, FP_LIMBS, P
+from ..constants import B_COEFF, BLS_X, GLV_BETA, P
 from ..errors import SerializationError
 from . import curve as C
 from . import field as F
+from . import kernels as K
 
 FP = F.FP
 
@@ -89,22 +92,38 @@ def decompress_g1(x_std: torch.Tensor, sort_bits: torch.Tensor, inf: torch.Tenso
 
     x_std: [12, N] standard-form x limbs (range-checked by the parser);
     sort_bits, inf: [N] bool. Returns (points G1 [N] Montgomery, on_curve [N],
-    in_subgroup [N]); identity lanes come back as (0 : 1 : 0) with both flags
-    set.
+    in_subgroup [N] bool); identity lanes come back as (0 : 1 : 0) with both
+    flags set. CUDA tensors go to the `g1_decompress` kernel, CPU tensors to
+    `decompress_g1_plain`; both give the same limbs and flags on every lane.
     """
-    xm = F.to_mont(FP, x_std)
-    rhs = F.mont_mul(FP, xm, F.mont_mul(FP, xm, xm))
-    rhs = F.add(FP, rhs, FP.broadcast(FP.mont_const(B_COEFF, xm.device), rhs.shape[1:]))
-    y = F.pow_fixed(FP, rhs, _SQRT_EXP)
-    on_curve = F.equal(FP, F.mont_mul(FP, y, y), rhs)
-    largest = _ge_const(F.from_mont(FP, y), _HALF_P_PLUS_1)
+    if x_std.device.type == "cpu":
+        return decompress_g1_plain(x_std, sort_bits, inf)
+    x, y, z, on_curve, in_subgroup = K.g1_decompress(x_std, sort_bits, inf)
+    return C.G1(x, y, z), on_curve.bool(), in_subgroup.bool()
+
+
+def decompress_g1_plain(x_std: torch.Tensor, sort_bits: torch.Tensor, inf: torch.Tensor):
+    """The plain version of the `g1_decompress` kernel (`decompress_g1` has
+    the contract): plain field and group operations, one batched call each,
+    on any device, so that on the card it is the reference the kernel is
+    held against."""
+    mul = F.mont_mul_plain
+    batch, dev = x_std.shape[1:], x_std.device
+    xm = mul(FP, x_std, FP.broadcast(FP.const(FP.r2_mod_p, dev), batch))
+    rhs = mul(FP, xm, mul(FP, xm, xm))
+    rhs = F.add(FP, rhs, FP.broadcast(FP.mont_const(B_COEFF, dev), batch))
+    y = F.pow_fixed(FP, rhs, _SQRT_EXP, plain=True)
+    on_curve = F.equal(FP, mul(FP, y, y), rhs)
+    largest = _ge_const(mul(FP, y, FP.broadcast(FP.const(1, dev), batch)), _HALF_P_PLUS_1)
     y = F.select(largest != sort_bits, F.neg(FP, y), y)
 
     zero = torch.zeros_like(xm)
-    one = FP.broadcast(FP.one(xm.device), xm.shape[1:])
+    one = FP.broadcast(FP.one(dev), batch)
     aff = C.G1Affine(F.select(inf, zero, xm), F.select(inf, zero, y), inf)
     pt = C.G1(aff.x, F.select(inf, one, y), F.select(inf, zero, one))
-    in_subgroup = C.equal(C.glv_endomorphism(pt), C.scalar_mul_static(aff, SUBGROUP_SCALAR)) | inf
+    phi = C.G1(mul(FP, pt.x, FP.broadcast(FP.mont_const(GLV_BETA, dev), batch)), pt.y, pt.z)
+    ladder = C.scalar_mul_static(aff, SUBGROUP_SCALAR, plain=True)
+    in_subgroup = C.equal(phi, ladder, plain=True) | inf
     return pt, on_curve | inf, in_subgroup
 
 

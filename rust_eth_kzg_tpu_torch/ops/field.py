@@ -231,21 +231,12 @@ def batch_inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     for i in range(32):
         prefix.append(acc)
         acc = mont_mul_plain(spec, acc, x[:, i])
-    inv = _pow_plain(spec, acc, spec.modulus - 2)
+    inv = pow_fixed(spec, acc, spec.modulus - 2, plain=True)
     out = [None] * 32
     for i in range(31, -1, -1):
         out[i] = mont_mul_plain(spec, inv, prefix[i])
         inv = mont_mul_plain(spec, inv, x[:, i])
     return torch.stack(out, dim=1).reshape(spec.nlimbs, 32 * c)[:, :n]
-
-
-def _pow_plain(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    acc = spec.broadcast(spec.one(a.device), a.shape[1:])
-    for bit in bin(exponent)[2:]:
-        acc = mont_mul_plain(spec, acc, acc)
-        if bit == "1":
-            acc = mont_mul_plain(spec, acc, a)
-    return acc
 
 
 def butterfly_plain(
@@ -340,13 +331,15 @@ def equal(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.all(a == b, dim=0)
 
 
-def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent in Montgomery form (square-and-multiply over host bits)."""
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int, plain: bool = False) -> torch.Tensor:
+    """a^exponent in Montgomery form (square-and-multiply over host bits).
+    With `plain` the products are `mont_mul_plain` on any device."""
+    mul = mont_mul_plain if plain else mont_mul
     acc = spec.broadcast(spec.one(a.device), a.shape[1:]).contiguous()
     for bit in bin(max(exponent, 0))[2:]:
-        acc = mont_mul(spec, acc, acc)
+        acc = mul(spec, acc, acc)
         if bit == "1":
-            acc = mont_mul(spec, acc, a)
+            acc = mul(spec, acc, a)
     return acc
 
 

@@ -56,9 +56,18 @@ KERNELS = {
         "batch_inverse.cu", "kzg_batch_inverse", "rust_eth_kzg_tpu/ops/pallas_kernels.py:274",
     ),
     "g1_fft": ("g1_fft.cu", "kzg_g1_fft", "rust_eth_kzg_tpu/ops/ntt.py:232"),
+    "g1_decompress": (
+        "g1_decompress.cu", "kzg_g1_decompress",
+        "rust_eth_kzg_tpu/ops/pallas_kernels.py:186 (g1_add_mixed; with :176 g1_double and :365 mont_mul)"
+        " as composed by rust_eth_kzg_tpu/ops/decompress.py:139",
+    ),
 }
 
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+# Further entry points of a kernel's library, not on any path of the port:
+# name -> (the kernel whose library holds it, C entry point)
+PROBES = {"mont_mul_chain": ("mont_mul", "kzg_mont_mul_chain")}
+
+LAUNCHES = dict.fromkeys([*KERNELS, *PROBES], 0)
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -72,6 +81,8 @@ _ARGTYPES = {
     "kzg_g1_add_mixed": [_P] * 9 + [_N, _P],
     "kzg_g1_add_affine": [_P] * 9 + [_N, _P],
     "kzg_g1_fft": [_P] * 9 + [_N, _I, _P],
+    "kzg_g1_decompress": [_P] * 8 + [_N, _P],
+    "kzg_mont_mul_chain": [_I, _P, _P, _N, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -178,8 +189,8 @@ def _fn(name: str):
     if fn is None:
         if "_dir" not in _build_info:
             build_all()
-        src, entry, _ = KERNELS[name]
-        lib = ctypes.CDLL(os.path.join(_build_info["_dir"], f"lib{name}.so"))
+        lib_name, entry = PROBES[name] if name in PROBES else (name, KERNELS[name][1])
+        lib = ctypes.CDLL(os.path.join(_build_info["_dir"], f"lib{lib_name}.so"))
         fn = getattr(lib, entry)
         fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
@@ -222,6 +233,19 @@ def mont_mul(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = a[0].numel()
     if n:
         _launch("mont_mul", a.device, _field_code(spec), a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def mont_mul_chain(spec, a: torch.Tensor, k: int) -> torch.Tensor:
+    """The chain probe: each lane of a [L, n] squared k times in a row
+    (a^(2^k) in Montgomery form), k dependent products a lane."""
+    _check(a, spec.nlimbs, "mont_mul_chain a")
+    if a.dim() != 2 or k < 0:
+        raise ValueError(f"mont_mul_chain: expected [L, n] and k >= 0, got {tuple(a.shape)}, k = {k}")
+    out = torch.empty_like(a)
+    n = a.shape[1]
+    if n:
+        _launch("mont_mul_chain", a.device, _field_code(spec), a.data_ptr(), out.data_ptr(), n, k)
     return out
 
 
@@ -347,3 +371,26 @@ def g1_fft(p, digits, neg1, neg2):
     if rows:
         _launch("g1_fft", p[0].device, *(t.data_ptr() for t in (*p, digits, neg1, neg2, *out)), rows, log_n)
     return tuple(out)
+
+
+def g1_decompress(x_std: torch.Tensor, sort_bits: torch.Tensor, inf: torch.Tensor):
+    """The device half of `decompress.decompress_g1` in one launch: x_std
+    [12, N] standard-form limbs, sort_bits and inf [N] (bool or 0/1) ->
+    (x, y, z [12, N] Montgomery, on_curve [N] uint8, in_subgroup [N] uint8)."""
+    _check(x_std, 12, "g1_decompress x_std")
+    if x_std.dim() != 2:
+        raise ValueError(f"g1_decompress: expected x_std [12, N], got {tuple(x_std.shape)}")
+    n = x_std.shape[1]
+    flags = []
+    for t, what in ((sort_bits, "sort_bits"), (inf, "inf")):
+        if t.shape != (n,):
+            raise ValueError(f"g1_decompress: expected {what} [{n}], got {tuple(t.shape)}")
+        t = t.to(torch.uint8).contiguous()
+        _check(t, None, f"g1_decompress {what}", torch.uint8)
+        flags.append(t)
+    out = [torch.empty_like(x_std) for _ in range(3)]
+    on_curve = torch.empty(n, dtype=torch.uint8, device=x_std.device)
+    in_subgroup = torch.empty_like(on_curve)
+    if n:
+        _launch("g1_decompress", x_std.device, *(t.data_ptr() for t in (x_std, *flags, *out, on_curve, in_subgroup)), n)
+    return (*out, on_curve, in_subgroup)

@@ -1,0 +1,74 @@
+"""Seeded inputs at the edges of the kernels' contracts, for checks.
+
+Shared by the card tests (`tests/test_torch_kernels_cuda.py`), the CPU tests
+and `chip_smoke.py`: Montgomery-product operand pairs at the bounds of
+`mont_mul`'s contract, and compressed G1 points of every kind the
+decompression meets (subgroup points of both signs, the identity, x off
+the curve, curve points outside the subgroup). Host Python and numpy only.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+
+from ..constants import P
+from ..ops.decompress import parse_compressed_g1_batch
+from . import bls_host as B
+
+
+def edge_operands(spec, seed=17, n_random=64):
+    """Montgomery-product operand pairs at the edges of the contract a < 2m,
+    b < m: a in {0, 1, R mod m, m - 1, m, 2m - 1}, b in {0, 1, m - 1}, the
+    all-ones limb patterns 2^(32 k) - 1 below each bound, and `n_random`
+    random pairs. Returns (a list, b list) of ints."""
+    m = spec.modulus
+    ones = [(1 << (32 * k)) - 1 for k in range(1, spec.nlimbs + 1)]
+    a_edge = [0, 1, spec.r_mod_p, m - 1, m, 2 * m - 1] + [v for v in ones if v < 2 * m]
+    b_edge = [0, 1, m - 1] + [v for v in ones if v < m]
+    pairs = [(a, b) for a in a_edge for b in b_edge]
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, size=(n_random, 2, 2 * spec.nlimbs), dtype=np.uint64)
+    for row in words:
+        a, b = (int.from_bytes(w.astype("<u4").tobytes(), "little") for w in row)
+        pairs.append((a % (2 * m), b % m))
+    return [a for a, _ in pairs], [b for _, b in pairs]
+
+
+def off_curve_bytes(rnd: random.Random) -> bytes:
+    """Compressed bytes of an x with no point on the curve."""
+    while True:
+        x = rnd.randrange(P)
+        if B.fp_sqrt(x * x * x + 4) is None:
+            data = bytearray(x.to_bytes(48, "big"))
+            data[0] |= 0x80
+            return bytes(data)
+
+
+def not_in_subgroup_bytes(rnd: random.Random) -> bytes:
+    """Compressed bytes of a curve point outside the prime-order subgroup."""
+    while True:
+        x = rnd.randrange(P)
+        y = B.fp_sqrt(x * x * x + 4)
+        if y is not None and not B.g1_in_subgroup((x, y)):
+            return B.g1_compress((x, y))
+
+
+def decompress_inputs(n, seed):
+    """n compressed G1 points for the decompression kernel: subgroup points
+    and their negations (both sort bits), identity lanes, x off the curve
+    and curve points outside the subgroup. Returns the parser's
+    (x_std, sort_bits, inf) and the kinds of the lanes."""
+    rnd = random.Random(seed)
+    base = [B.g1_mul(B.G1_GEN, rnd.randrange(1, 2**64)) for _ in range(8)]
+    good = [B.g1_compress(p) for p in base] + [B.g1_compress((x, P - y)) for x, y in base]
+    specials = {"identity": [B.g1_compress(None)], "off_curve": [off_curve_bytes(rnd) for _ in range(3)],
+                "not_in_subgroup": [not_in_subgroup_bytes(rnd) for _ in range(3)]}
+    raw, kinds = [], []
+    for i in range(n):
+        kind = ("identity", "off_curve", "not_in_subgroup")[i % 3] if i % 5 == 2 else "good"
+        pool = good if kind == "good" else specials[kind]
+        raw.append(pool[rnd.randrange(len(pool))])
+        kinds.append(kind)
+    return parse_compressed_g1_batch(raw), kinds

@@ -17,6 +17,7 @@ from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import limbs as L
 from rust_eth_kzg_tpu_torch.utils import convert
+from rust_eth_kzg_tpu_torch.utils.edge_inputs import edge_operands
 
 PAIRS = [(F.FR, JF.FR), (F.FP, JF.FP)]
 IDS = ["fr", "fp"]
@@ -66,6 +67,16 @@ def test_mont_mul_at_bounds(spec):
     r_inv = pow(spec.r, -1, m)
     assert got == [x * y * r_inv % m for x, y in zip(a, b)]
     assert all(v < m for v in got)
+
+
+@pytest.mark.parametrize("spec", [F.FR, F.FP], ids=IDS)
+def test_mont_mul_plain_edge_operands(spec):
+    """mont_mul_plain on the edge operands against Python integers."""
+    a, b = edge_operands(spec)
+    out = F.mont_mul_plain(spec, torch.from_numpy(L.ints_to_limbs(a, spec.nlimbs)),
+                           torch.from_numpy(L.ints_to_limbs(b, spec.nlimbs)))
+    r_inv = pow(spec.r, -1, spec.modulus)
+    assert L.limbs_to_ints(out.numpy()) == [x * y * r_inv % spec.modulus for x, y in zip(a, b)]
 
 
 @pytest.mark.parametrize("spec,jspec", PAIRS, ids=IDS)
@@ -204,4 +215,9 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         K.batch_inverse(F.FR, a)
     with pytest.raises(ValueError):
         K.g1_double((a, a, a))
+    with pytest.raises(ValueError):
+        K.mont_mul_chain(F.FR, a, 3)
+    x = torch.zeros((12, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        K.g1_decompress(x, torch.zeros(4, dtype=torch.bool), torch.zeros(4, dtype=torch.bool))
     assert sum(K.LAUNCHES.values()) == 0

@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from rust_eth_kzg_tpu_torch.ops import curve as C
+from rust_eth_kzg_tpu_torch.ops import decompress as D
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
+from rust_eth_kzg_tpu_torch.ops import limbs as LB
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
+from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +49,29 @@ def _points(n, seed, device):
 def test_mont_mul_kernel(device, spec):
     a, b = _field(spec, 1000, 1, device), _field(spec, 1000, 2, device)
     assert torch.equal(K.mont_mul(spec, a, b), F.mont_mul_plain(spec, a, b))
+
+
+@pytest.mark.parametrize("spec", [F.FR, F.FP], ids=["fr", "fp"])
+def test_mont_mul_edge_operands(device, spec):
+    """The PTX core on the edge operands, against Python integers and the
+    plain version, both operand orders' bounds kept (a < 2m, b < m)."""
+    a, b = edge_operands(spec, n_random=4096)
+    ta = torch.from_numpy(LB.ints_to_limbs(a, spec.nlimbs)).to(device)
+    tb = torch.from_numpy(LB.ints_to_limbs(b, spec.nlimbs)).to(device)
+    got = K.mont_mul(spec, ta, tb)
+    r_inv = pow(spec.r, -1, spec.modulus)
+    assert LB.limbs_to_ints(got.cpu().numpy()) == [x * y * r_inv % spec.modulus for x, y in zip(a, b)]
+    assert torch.equal(got, F.mont_mul_plain(spec, ta, tb))
+
+
+@pytest.mark.parametrize("spec", [F.FR, F.FP], ids=["fr", "fp"])
+def test_mont_mul_chain_probe(device, spec):
+    """The chain probe squares each lane k times: a^(2^k)."""
+    vals = [v * 7919 % spec.modulus for v in range(1, 65)]
+    x = torch.from_numpy(spec.to_mont_host(vals)).to(device)
+    for k in (0, 1, 37):
+        got = spec.from_mont_host(K.mont_mul_chain(spec, x, k).cpu().numpy())
+        assert got == [pow(v, 1 << k, spec.modulus) for v in vals]
 
 
 def test_field_butterfly_kernel(device):
@@ -110,3 +136,25 @@ def test_g1_fft_kernel(device, rows, n):
         assert all(K.LAUNCHES[k] == before[k] for k in ("g1_add", "g1_double"))
         want = dom._dit_g1_plain(p, tag)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [129, 1032])
+def test_g1_decompress_kernel(device, n):
+    """The fused decompression kernel against decompress_g1_plain on every
+    lane: the point's three coordinates and both flags, off-curve and
+    non-subgroup lanes included; one launch."""
+    (x, sort, inf), kinds = decompress_inputs(n, 40 + n)
+    x, sort, inf = torch.from_numpy(x).to(device), torch.from_numpy(sort).to(device), torch.from_numpy(inf).to(device)
+    assert bool(sort.any()) and not bool(sort.all())
+    before = dict(K.LAUNCHES)
+    pt, on_curve, in_sub = D.decompress_g1(x, sort, inf)
+    assert K.LAUNCHES["g1_decompress"] == before["g1_decompress"] + 1
+    assert all(K.LAUNCHES[k] == before[k] for k in K.LAUNCHES if k != "g1_decompress")
+    want_pt, want_on, want_sub = D.decompress_g1_plain(x, sort, inf)
+    assert all(torch.equal(g, w) for g, w in zip(pt, want_pt))
+    assert torch.equal(on_curve, want_on) and torch.equal(in_sub, want_sub)
+    on, sub = on_curve.tolist(), in_sub.tolist()
+    for i, kind in enumerate(kinds):
+        assert on[i] == (kind != "off_curve")
+        if kind != "off_curve":
+            assert sub[i] == (kind != "not_in_subgroup")

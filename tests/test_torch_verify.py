@@ -12,7 +12,9 @@ against JAX in test_torch_msm.py, and JAX-made proofs are verified in
 test_torch_fk20.py::test_slice_matches_jax.
 """
 
+import os
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from rust_eth_kzg_tpu_torch.models.fk20_verifier import verify_device
 from rust_eth_kzg_tpu_torch.ops import curve as C
 from rust_eth_kzg_tpu_torch.ops import decompress as D
 from rust_eth_kzg_tpu_torch.ops import field as F
+from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import limbs as LB
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
@@ -113,7 +116,11 @@ def test_decompress_matches_jax():
     pts = [_rand_g1(rnd) for _ in range(4)] + [None]
     raw = [B.g1_compress(p) for p in pts] + [_off_curve_bytes(rnd), B.g1_compress(_not_in_subgroup(rnd))]
     x, sort, inf = D.parse_compressed_g1_batch(raw)
+    before = dict(K.LAUNCHES)
     got, on_curve, in_sub = D.decompress_g1(torch.from_numpy(x), torch.from_numpy(sort), torch.from_numpy(inf))
+    assert K.LAUNCHES == before  # CPU tensors: the plain route, no kernel
+    plain = D.decompress_g1_plain(torch.from_numpy(x), torch.from_numpy(sort), torch.from_numpy(inf))
+    assert all(torch.equal(g, w) for g, w in zip((*got, on_curve, in_sub), (*plain[0], *plain[1:])))
     jx, jsort, jinf = JD.parse_compressed_g1_batch(raw)
     want, jon, jsub = JD.decompress_g1(jnp.asarray(jx), jnp.asarray(jsort), jnp.asarray(jinf))
     on_curve, jon = on_curve.tolist(), np.asarray(jon).tolist()
@@ -123,6 +130,35 @@ def test_decompress_matches_jax():
     port_pts = C.points_from_device(C._map(lambda c: c[:, live], got))
     jax_pts = JC.points_from_device(JC.G1(*(c[:, live] for c in want)))
     assert port_pts == jax_pts and port_pts[:5] == pts
+
+
+def test_g1_decompress_kernel_constants():
+    """The constants of csrc/g1_decompress.cu: R^2, b R and (p - 1)/2 + 1,
+    the sliding-window schedule of the square root's exponent (p + 1)/4, and
+    the subgroup ladder's scalar z^2 - 1."""
+    path = os.path.join(os.path.dirname(D.__file__), "..", "csrc", "g1_decompress.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def arr(name):
+        body = re.search(name + r"\[[^\]]*\] = \{([^}]*)\}", src).group(1)
+        return [int(w, 0) for w in re.findall(r"0x[0-9a-f]+|\d+", body)]
+
+    def fp(name):
+        return sum(w << (32 * i) for i, w in enumerate(arr(name)))
+
+    r = F.FP.r
+    assert fp("FP_R2") == r * r % P and fp("FP_B") == 4 * r % P
+    assert fp("FP_HALF_PLUS_1") == (P - 1) // 2 + 1
+    steps = arr("SQRT_STEPS")
+    assert len(steps) == 2 * int(re.search(r"SQRT_NSTEPS = (\d+);", src).group(1))
+    e = 0
+    for squarings, digit in zip(steps[0::2], steps[1::2]):
+        assert digit == 0 or (digit % 2 == 1 and digit < 32)
+        e = (e << squarings) + digit
+    assert e == (P + 1) // 4 and steps[0] == 0
+    hi, lo = (int(re.search(name + r" = (0x[0-9a-f]+)ull;", src).group(1), 16) for name in ("SUBGROUP_HI", "SUBGROUP_LO"))
+    assert (hi << 64) | lo == D.SUBGROUP_SCALAR and D.SUBGROUP_SCALAR.bit_length() == 128
 
 
 def test_raise_for_flags_matches_jax():
