@@ -18,7 +18,15 @@ per phase:
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
                      prove path: compute_cells_and_kzg_proofs_batch on the
                      zero blob and seven seeded random blobs (zero-blob,
-                     systematic-cell and repeatability checks);
+                     systematic-cell and repeatability checks); then the
+                     last kernel of phase 2, fixed_base_msm, against its
+                     plain version on the prover's mainnet tables (the FK20
+                     slot MSMs of 1 blob timed, of 8 blobs timed as
+                     "wide"), the verifier's 64-point commitment table and
+                     the 4,096-point commit key (zero scalars, r - 1,
+                     all-zero rows, identity base points), with its work
+                     from this run's digits and the device ms of its two
+                     launches;
   4. recover         recover_cells_and_kzg_proofs(_batch) from 64 of 128
                      cells, one blob and the 8 blobs with a seeded pattern
                      each, against the prover's bytes; too few cells and a
@@ -30,13 +38,15 @@ per phase:
                      (prove B=8, recover B=8, verify 1,024 cells), each reset
                      just before its call and read just after: every kernel
                      a path runs must have launched on it, the prover's two
-                     G1 transforms as 2 g1_fft launches with at most 100
-                     g1_add + g1_double launches beside them, the verifier's
-                     decompression as 1 g1_decompress launch with at most 20
-                     mont_mul launches in the whole call; every kernel is
-                     launched on some path or runs inside one that is and
-                     names it in its `replaces` (g1_add_mixed in
-                     g1_decompress);
+                     G1 transforms as 2 g1_fft launches and its fixed-base
+                     MSM as one fixed_base_msm call (2 launches) with no
+                     g1_add, g1_double or g1_add_affine launch beside them,
+                     the verifier's decompression as 1 g1_decompress launch
+                     with at most 20 mont_mul launches in the whole call and
+                     its commitment MSM as one fixed_base_msm call; every
+                     kernel is launched on some path or runs inside one that
+                     is and names it in its `replaces` (g1_add_mixed in
+                     g1_decompress, g1_add_affine in fixed_base_msm);
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py);
@@ -230,6 +240,7 @@ def phase_build(K):
             "registers": max(f["registers"] or 0 for f in funcs),
             "spill_stores": max(f["spill_stores"] for f in funcs),
             "spill_loads": max(f["spill_loads"] for f in funcs),
+            "stack": max(f["stack"] for f in funcs),
             "functions": rec["functions"],
         }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": out})
@@ -278,6 +289,33 @@ def _max_abs_err(got, want):
     return worst
 
 
+def _compare(torch, results, name, kernel, plain, nbytes, imad, reps=20, main=True, record=None, plain_reps=2):
+    """Hold kernel() against plain() exactly; where `main`, time both and
+    keep the row in results[record or name] with its bound."""
+    got = kernel()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    stop.record()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = _max_abs_err(got, want)
+    ok = err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
+    if not ok:
+        raise CheckFailed(f"kernel {name} disagrees with its plain version (max abs limb error {err})")
+    if main:
+        ms = cuda_ms(kernel, reps)
+        # plain_reps=0: the checking run alone times the plain version (a slow one)
+        plain_ms = cuda_ms(plain, plain_reps) if plain_reps else start.elapsed_time(stop)
+        b_ms, b_by = bound(imad, nbytes)
+        results[record or name] = {
+            "ok": True, "max_abs_err": err, "kernel_ms": ms, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+
+
 def phase_kernels(torch, K, F, C, device):
     """Each kernel at a main-path shape (timed) and at the extra shapes of the
     port's test list, against its plain version on the same card inputs."""
@@ -291,29 +329,8 @@ def phase_kernels(torch, K, F, C, device):
     FR, FP = F.FR, F.FP
     results = {}
 
-    def compare(name, kernel, plain, nbytes, imad, reps=20, main=True, record=None, plain_reps=2):
-        got = kernel()
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain()
-        stop.record()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = _max_abs_err(got, want)
-        ok = err == 0 and all(torch.equal(g, w) for g, w in zip(got, want))
-        if not ok:
-            raise CheckFailed(f"kernel {name} disagrees with its plain version (max abs limb error {err})")
-        if main:
-            ms = cuda_ms(kernel, reps)
-            # plain_reps=0: the checking run alone times the plain version (a slow one)
-            plain_ms = cuda_ms(plain, plain_reps) if plain_reps else start.elapsed_time(stop)
-            b_ms, b_by = bound(imad, nbytes)
-            results[record or name] = {
-                "ok": True, "max_abs_err": err, "kernel_ms": ms, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
+    def compare(*args, **kwargs):
+        _compare(torch, results, *args, **kwargs)
 
     # mont_mul: Fr [8, 1, 128, 64] (the 1/(2k) fold of one blob) timed; Fr and
     # Fp on 2^16 lanes with the a < 2p and p - 1 extremes
@@ -693,11 +710,164 @@ def phase_mainnet_oracle(torch, api, C, device):
           "cells_checked": 128, "commitment_checked": True, "seconds": time.perf_counter() - t0})
 
 
+# Montgomery products of a chord addition (curve.cuh's g1_add_affine, the
+# fixed-base MSM's first level); its tree and Horner run the teams' team_add
+# and team_double (g1_team.cuh): ADD_PRODUCTS and DBL_PRODUCTS.
+MSM_CHORD_PRODUCTS = 8
+
+
+def fixed_base_msm_work(K, M, tables, scalars):
+    """The work fixed_base_msm needs on these inputs, from their digits (on
+    the host): a live entry has a nonzero digit and a base point that is not
+    the identity; a chord addition with both lanes live costs 8 products (one
+    with an identity lane passes the other through), a tree addition whose
+    two operands both hold a live lane 12, and each output point's Horner
+    loop (wpc - 1) (window doublings of 8 + 1 addition of 12); one Fr
+    product a scalar to standard form. Bytes: 96 B a live entry, the
+    scalars, the identity mask and the output points. Also, as counts, the
+    gather's bytes in 32 B sectors (one a word of an entry: the tables are
+    limb-major) and Horner's product rounds on one team's chain."""
+    import torch
+
+    w, chains, wpc = tables.window, tables.chains, tables.wpc
+    sm = scalars.cpu()
+    digits = M.chain_digits(M.signed_digits(sm, w), chains, wpc)  # [wpc, *batch, CP]
+    cp = digits.shape[-1]
+    live = ((digits != 0) & ~tables.base_inf.cpu()).reshape(-1, cp)
+    chord, m, s, g = K.fixed_base_split(cp)
+    chord_adds = 0
+    level = live
+    if chord:
+        chord_adds = int((live[:, :m] & live[:, m:]).sum())
+        level = live[:, :m] | live[:, m:]
+    if s * g > level.shape[1]:
+        level = torch.cat((level, torch.zeros((level.shape[0], s * g - level.shape[1]), dtype=torch.bool)), dim=1)
+    tree_adds = 0
+    while level.shape[1] > 1:
+        h = level.shape[1] // 2
+        tree_adds += int((level[:, :h] & level[:, h:]).sum())
+        level = level[:, :h] | level[:, h:]
+    n_scalars = sm[0].numel()
+    n_out = n_scalars // (cp // chains)
+    horner_products = n_out * (wpc - 1) * (w * DBL_PRODUCTS + ADD_PRODUCTS)
+    products = chord_adds * MSM_CHORD_PRODUCTS + tree_adds * ADD_PRODUCTS + horner_products
+    live_entries = int(live.sum())
+    sector_bytes = live_entries * 24 * 32
+    return {
+        "live_entries": live_entries, "lanes": live.numel(), "chord_additions": chord_adds,
+        "tree_additions": tree_adds, "horner_products": horner_products, "fp_products": products,
+        "fr_products": n_scalars, "output_points": n_out, "split_blocks": g,
+        "imad": products * mont_mul_imad(12) + n_scalars * mont_mul_imad(8),
+        "bytes": 96 * live_entries + 32 * n_scalars + tables.base_inf.numel() + 3 * 48 * n_out,
+        "gather_sector_bytes": sector_bytes,
+        "horner_rounds": (wpc - 1) * (w * DBL_ROUNDS + ADD_ROUNDS),
+    }
+
+
+def _launch_split_ms(torch, fn):
+    """Device ms of each of fixed_base_msm's two launches in one call, by
+    torch.profiler as measure_call reads it; None for a launch the profiler
+    did not report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"windows": None, "horner": None}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        for part in split:
+            if f"fixed_base_msm_{part}_kernel" in ev.key and us:
+                split[part] = (split[part] or 0.0) + us / 1e3
+    return split
+
+
+def phase_fixed_base_msm(torch, K, C, ctx, results, device):
+    """fixed_base_msm against fixed_base_msm_plain (the last kernel of phase
+    2; it needs the prover's mainnet tables): the FK20 slot MSMs of one blob,
+    [1, 128, 64] random scalars (timed: the main-path row), and of 8 blobs
+    (timed as `wide`; the plain route one blob at a time); checked on the
+    same tables at [2, 128, 64], on the verifier's 64-point commitment table
+    with two identity base points and on the 4,096-point commit key with one
+    lane in 997 flagged as an identity base point, each with zero scalars,
+    r - 1 and an all-zero first row (edge_inputs.msm_scalars)."""
+    from rust_eth_kzg_tpu_torch.ops import msm as M
+    from rust_eth_kzg_tpu_torch.utils.edge_inputs import msm_scalars
+
+    t0 = time.perf_counter()
+
+    def compare(*args, **kwargs):
+        _compare(torch, results, *args, **kwargs)
+
+    def kernel_of(tables, scalars):
+        return lambda: K.fixed_base_msm(tables.table_x, tables.table_y, tables.base_inf, scalars,
+                                        tables.window, tables.chains, tables.wpc)
+
+    def launches_of(fn):
+        before = dict(K.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+
+    latency_ms = results["mont_mul"]["fp_product_latency_us"] / 1e3
+    fk = ctx.prover.tables
+    horner_ms = {}
+    for b, record in ((1, "fixed_base_msm"), (8, "fixed_base_msm_wide")):
+        scalars = torch.from_numpy(msm_scalars((b, 128, 64), SEED + 60 + b, edges=False)).to(device)
+        kernel = kernel_of(fk, scalars)
+        if b == 1:
+            def plain():
+                return tuple(M.fixed_base_msm_plain(fk, scalars))
+        else:
+            def plain():
+                rows = [M.fixed_base_msm_plain(fk, scalars[:, i : i + 1]) for i in range(b)]
+                return tuple(torch.cat([r[c] for r in rows], dim=1) for c in range(3))
+        check(launches_of(kernel) == {"fixed_base_msm": K.LAUNCHES_PER_CALL["fixed_base_msm"]},
+              "fixed_base_msm: one call is its two launches and nothing else")
+        check(launches_of(plain) == {}, "fixed_base_msm_plain launches no kernel")
+        work = fixed_base_msm_work(K, M, fk, scalars)
+        compare("fixed_base_msm", kernel, plain, work["bytes"], work["imad"], reps=10, record=record,
+                plain_reps=0)
+        results[record].update({k: v for k, v in work.items() if k not in ("imad", "bytes")})
+        results[record]["launch_ms"] = _launch_split_ms(torch, kernel)
+        # a model figure (rounds x the probe's latency): on the phase line only
+        horner_ms[record] = work["horner_rounds"] * latency_ms
+    s2 = torch.from_numpy(msm_scalars((2, 128, 64), SEED + 69)).to(device)
+    compare("fixed_base_msm", kernel_of(fk, s2), lambda: tuple(M.fixed_base_msm_plain(fk, s2)), 0, 0, main=False)
+    # the verifier's 64-point commitment table, two of its base points the identity
+    pts = list(ctx.verifier.g1s[:64])
+    pts[5] = pts[40] = None
+    t64 = M.build_fixed_base_msm(C.points_to_device(pts, device), window=8)
+    check(int(t64.base_inf.sum()) == 2 * t64.chains, "64-point table: two identity base points a chain")
+    s64 = torch.from_numpy(msm_scalars((2, 64), SEED + 70)).to(device)
+    compare("fixed_base_msm", kernel_of(t64, s64), lambda: tuple(M.fixed_base_msm_plain(t64, s64)), 0, 0,
+            main=False)
+    # the commit key, [12, 16384, 128]: 8,192 points a window sum after the
+    # chord level, split over 64 blocks
+    ck = ctx.prover.commit_tables
+    inf = ck.base_inf.clone()
+    inf[::997] = True
+    ckf = M.FixedBaseMSM(ck.table_x, ck.table_y, inf, ck.window, ck.instance_ndim, ck.chains, ck.wpc)
+    sck = torch.from_numpy(msm_scalars((2, 4096), SEED + 71)).to(device)
+    compare("fixed_base_msm", kernel_of(ckf, sck), lambda: tuple(M.fixed_base_msm_plain(ckf, sck)), 0, 0,
+            main=False)
+    results["fixed_base_msm"]["commit_key_split_blocks"] = K.fixed_base_split(ck.table_x.shape[-2])[3]
+    emit({"phase": "kernels_fixed_base_msm", "seconds": time.perf_counter() - t0, "checked": [
+        {"name": k, "ok": results[k]["ok"], "kernel_ms": results[k]["kernel_ms"], "plain_ms": results[k]["plain_ms"],
+         "launch_ms": results[k]["launch_ms"], "horner_critical_path_probe_ms": horner_ms[k]} for k in ("fixed_base_msm", "fixed_base_msm_wide")
+    ] + [{"name": "fixed_base_msm", "shape": shape, "ok": True} for shape in ("fk20_b2_edges", "commit_64", "commit_key_4096")]})
+
+
 KERNEL_FUNCTIONS = {
     "g1_add_affine": "g1_add_affine_kernel", "g1_add_mixed": "g1_add_mixed_kernel",
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
     "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
     "g1_fft": "g1_fft_kernel", "g1_decompress": "g1_decompress_kernel",
+    "fixed_base_msm": "fixed_base_msm_",  # its two launches: _windows_kernel, _horner_kernel
 }
 
 
@@ -744,6 +914,7 @@ def measure_call(torch, K, fn, reps=5):
     return {
         "median_ms": median, "runs_ms": host, "cuda_event_ms": statistics.median(dev),
         "device_busy_ms": busy, "host_share_ms": median - busy,
+        "in_no_kernel_ms": busy - sum(per_kernel.values()),
         "kernel_device_ms": per_kernel, "launches": dict(K.LAUNCHES),
     }
 
@@ -753,10 +924,17 @@ def phase_timing(torch, K, ctx, card, out, comms):
 
     t0 = time.perf_counter()
     calls = {}
+    def no_per_op_msm(name, r):
+        n = r["launches"]
+        check(n["fixed_base_msm"] == K.LAUNCHES_PER_CALL["fixed_base_msm"]
+              and n["g1_add"] + n["g1_double"] + n["g1_add_affine"] == 0,
+              f"{name}: one fixed_base_msm call and no g1_add, g1_double or g1_add_affine launch a call")
+
     for b in (1, 8):
         pblobs = [_random_blob(SEED + 10 + i) for i in range(b)]
         r = measure_call(torch, K, lambda: ctx.compute_cells_and_kzg_proofs_batch(pblobs))
         r["blobs_per_s"] = b / (r["median_ms"] / 1e3)
+        no_per_op_msm(f"prove_B{b}", r)
         calls[f"prove_B{b}"] = r
     for first, nblobs in ((1, 1), (0, 8)):
         args = verify_batch(out[first:], comms[first:], nblobs)
@@ -771,6 +949,7 @@ def phase_timing(torch, K, ctx, card, out, comms):
             idx = _kept(rng, 64)
             batches.append((idx, [cells[i] for i in idx]))
         calls[f"recover_B{b}"] = measure_call(torch, K, lambda: ctx.recover_cells_and_kzg_proofs_batch(batches))
+        no_per_op_msm(f"recover_B{b}", calls[f"recover_B{b}"])
     emit({"phase": "timing", "card": card, "calls": calls,
           "stages_ms": _stage_times(torch, ctx, _random_blob(SEED + 7)),
           "verify_stages_ms": {
@@ -872,6 +1051,7 @@ def main() -> int:
               "seconds": time.perf_counter() - native_s})
         results = phase_kernels(torch, K, F, C, device)
         ctx, prove_launches, blobs, out = phase_mainnet_setup(torch, api, K, device)
+        phase_fixed_base_msm(torch, K, C, ctx, results, device)
         recover_launches = phase_recover(torch, K, ctx, out)
         verify_launches, comms = phase_verify(torch, K, ctx, blobs, out)
         paths = {
@@ -883,27 +1063,37 @@ def main() -> int:
         # every kernel each path runs launched on it; g1_decompress runs only
         # in the verifier (its subgroup ladder holds g1_add_mixed's work),
         # g1_fft only in the prover's two G1 transforms (prove, and recover's
-        # re-prove)
+        # re-prove), fixed_base_msm in every fixed-base MSM (its chord level
+        # holds g1_add_affine's work); g1_add and g1_double run in the
+        # verifier's Pippenger MSMs only
+        fused_away = {"g1_add_mixed", "g1_add_affine"}
         expected = {
-            "prove": set(K.KERNELS) - {"g1_add_mixed", "g1_decompress"},
-            "recover": set(K.KERNELS) - {"g1_add_mixed", "g1_decompress"},
-            "verify": set(K.KERNELS) - {"g1_fft", "g1_add_mixed"},
+            "prove": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
+            "recover": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
+            "verify": set(K.KERNELS) - fused_away - {"g1_fft"},
         }
         for path, (_, counts) in paths.items():
             missing = sorted(k for k in expected[path] if counts[k] <= 0)
             check(not missing, f"{path} path launched no {missing}: {counts}")
-        # the G1 transforms are one g1_fft launch each, not ladders composed
+        # the G1 transforms are one g1_fft launch each and the slot MSMs one
+        # fixed_base_msm call, not ladders, trees and Horner loops composed
         # from the per-operation kernels
+        msm_call = K.LAUNCHES_PER_CALL["fixed_base_msm"]
         for path in ("prove", "recover"):
             counts = paths[path][1]
             check(counts["g1_fft"] == 2, f"{path}: 2 g1_fft launches expected: {counts}")
-            check(counts["g1_add"] + counts["g1_double"] <= 100,
-                  f"{path}: at most 100 g1_add + g1_double launches expected: {counts}")
+            check(counts["fixed_base_msm"] == msm_call,
+                  f"{path}: one fixed_base_msm call ({msm_call} launches) expected: {counts}")
+            check(counts["g1_add"] + counts["g1_double"] + counts["g1_add_affine"] == 0,
+                  f"{path}: no g1_add, g1_double or g1_add_affine launch expected: {counts}")
         # the verifier's decompression is one fused launch: the square root's
-        # products and the subgroup ladder no longer launch one by one
+        # products and the subgroup ladder no longer launch one by one; its
+        # commitment MSM is one fixed_base_msm call
         counts = paths["verify"][1]
         check(counts["g1_decompress"] == 1, f"verify: 1 g1_decompress launch expected: {counts}")
         check(counts["mont_mul"] <= 20, f"verify: at most 20 mont_mul launches expected: {counts}")
+        check(counts["fixed_base_msm"] == msm_call and counts["g1_add_affine"] == 0,
+              f"verify: one fixed_base_msm call and no g1_add_affine launch expected: {counts}")
         # every kernel launched on some path, or its work runs inside a
         # launched kernel whose `replaces` names its TPU kernel
         launched = {k for k in K.KERNELS if any(n[k] > 0 for _, n in paths.values())}
@@ -927,11 +1117,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "ok": r["ok"], "registers": build[name]["registers"],
             "spill_stores": build[name]["spill_stores"], "spill_loads": build[name]["spill_loads"],
+            "stack": build[name]["stack"],
         }
         wide = results.get(f"{name}_wide")
         if wide:
             row.update({"wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
                         "wide_bound_ms": wide["bound_ms"], "wide_bound_by": wide["bound_by"]})
+            row.update({f"wide_{k}": v for k, v in wide.items() if k in ("launch_ms", "fp_products", "live_entries",
+                                                                           "gather_sector_bytes")})
         for key, value in r.items():
             if key not in row and key not in ("kernel_ms", "ok"):
                 row[key] = value

@@ -224,8 +224,11 @@ def equal(p: G1, q: G1, plain: bool = False) -> torch.Tensor:
     return (ip & iq) | (~(ip ^ iq) & ex & ey)
 
 
-def reduce_sum(p: G1, axis: int = -1) -> G1:
-    """Sum along one batch axis by pairwise halving (n - 1 additions)."""
+def reduce_sum(p: G1, axis: int = -1, plain: bool = False) -> G1:
+    """Sum along one batch axis by pairwise halving (n - 1 additions): point
+    k plus point k + n/2, padded to a power of two with the identity. With
+    `plain` the plain formulas run on any device."""
+    add_ = add_plain if plain else add
     p = _map(lambda c: torch.movedim(c, axis if axis < 0 else axis + 1, -1), p)
     n = p.x.shape[-1]
     pow2 = 1 << max(n - 1, 0).bit_length()
@@ -235,7 +238,7 @@ def reduce_sum(p: G1, axis: int = -1) -> G1:
         n = pow2
     while n > 1:
         h = n // 2
-        p = add(_map(lambda c: c[..., :h], p), _map(lambda c: c[..., h:], p))
+        p = add_(_map(lambda c: c[..., :h], p), _map(lambda c: c[..., h:], p))
         n = h
     return _map(lambda c: c[..., 0], p)
 

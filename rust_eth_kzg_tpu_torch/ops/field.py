@@ -274,9 +274,11 @@ def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, spec.broadcast(spec.const(spec.r2_mod_p, a.device), a.shape[1:]))
 
 
-def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Montgomery form -> canonical standard form in [0, p)."""
-    return mont_mul(spec, a, spec.broadcast(spec.const(1, a.device), a.shape[1:]))
+def from_mont(spec: FieldSpec, a: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Montgomery form -> canonical standard form in [0, p). With `plain` the
+    product is `mont_mul_plain` on any device."""
+    mul = mont_mul_plain if plain else mont_mul
+    return mul(spec, a, spec.broadcast(spec.const(1, a.device), a.shape[1:]))
 
 
 def _elementwise16(spec: FieldSpec, fn, *xs: torch.Tensor) -> torch.Tensor:

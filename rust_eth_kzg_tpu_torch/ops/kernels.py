@@ -8,10 +8,11 @@ sources compile in parallel.
 
 Each wrapper below takes CUDA tensors only: it checks device, dtype, shape
 and contiguity, allocates its outputs and scratch with `torch.empty`,
-launches on the current stream, raises if the launch failed, and adds one to
-`LAUNCHES[name]`. The plain versions of the same functions live beside their
-callers (`ops/field.py`, `ops/curve.py`); the callers choose the plain
-version only for tensors on the CPU.
+launches on the current stream, raises if the launch failed, and adds its
+launches to `LAUNCHES[name]` (one, or `LAUNCHES_PER_CALL[name]`). The plain
+versions of the same functions live beside their callers (`ops/field.py`,
+`ops/curve.py`, `ops/msm.py`, `ops/decompress.py`); the callers choose the
+plain version only for tensors on the CPU.
 
 Importing this module builds nothing and needs no card.
 """
@@ -29,7 +30,7 @@ import time
 
 import torch
 
-from ..constants import GLV_NBITS
+from ..constants import GLV_NBITS, SCALAR_BITS
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -61,6 +62,12 @@ KERNELS = {
         "rust_eth_kzg_tpu/ops/pallas_kernels.py:186 (g1_add_mixed; with :176 g1_double and :365 mont_mul)"
         " as composed by rust_eth_kzg_tpu/ops/decompress.py:139",
     ),
+    "fixed_base_msm": (
+        "fixed_base_msm.cu", "kzg_fixed_base_msm",
+        "rust_eth_kzg_tpu/ops/pallas_kernels.py:163 (g1_add) and :176 (g1_double);"
+        " rust_eth_kzg_tpu/ops/pallas_kernels.py:210 (g1_add_affine);"
+        " as composed by rust_eth_kzg_tpu/ops/msm.py:334 (_window_sums) and :369 (fixed_base_msm)",
+    ),
 }
 
 # Further entry points of a kernel's library, not on any path of the port:
@@ -68,6 +75,8 @@ KERNELS = {
 PROBES = {"mont_mul_chain": ("mont_mul", "kzg_mont_mul_chain")}
 
 LAUNCHES = dict.fromkeys([*KERNELS, *PROBES], 0)
+# Kernel launches a wrapper call makes, where that is not 1 (each is counted)
+LAUNCHES_PER_CALL = {"fixed_base_msm": 2}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -83,6 +92,7 @@ _ARGTYPES = {
     "kzg_g1_fft": [_P] * 9 + [_N, _I, _P],
     "kzg_g1_decompress": [_P] * 8 + [_N, _P],
     "kzg_mont_mul_chain": [_I, _P, _P, _N, _I, _P],
+    "kzg_fixed_base_msm": [_P] * 8 + [_N, _N] + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
@@ -216,7 +226,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += LAUNCHES_PER_CALL.get(name, 1)
 
 
 def _field_code(spec) -> int:
@@ -394,3 +404,67 @@ def g1_decompress(x_std: torch.Tensor, sort_bits: torch.Tensor, inf: torch.Tenso
     if n:
         _launch("g1_decompress", x_std.device, *(t.data_ptr() for t in (x_std, *flags, *out, on_curve, in_subgroup)), n)
     return (*out, on_curve, in_subgroup)
+
+
+# post-chord points a block of the first launch sums: at most its 128
+# threads (THREADS in fixed_base_msm.cu, which refuses a larger s)
+_POINTS_PER_BLOCK = 128
+
+
+def fixed_base_split(k: int, per_block: int = _POINTS_PER_BLOCK) -> tuple[int, int, int, int]:
+    """How `fixed_base_msm` cuts a window sum of k lanes: (chord, m, s, g).
+
+    chord: 1 if the first level pairs lane j with lane j + k/2 (k even and
+    above 1), as `msm._window_sums` does; m: the points after that level;
+    s: the points a block sums, min(next power of two of m, per_block); g: the
+    blocks a window sum, next power of two of m over s. Block i takes the
+    points j = i (mod g), identity padding past m.
+    """
+    chord = int(k % 2 == 0 and k > 1)
+    m = k // 2 if chord else k
+    mp = 1 << max(m - 1, 0).bit_length()
+    s = min(mp, per_block)
+    return chord, m, s, mp // s
+
+
+def fixed_base_msm(table_x, table_y, base_inf, scalars, window: int, chains: int, wpc: int):
+    """The whole of `msm.fixed_base_msm` in one source (two launches): table_x,
+    table_y [12, *inst, chains * P, D] Montgomery Fp with D = 2^(window - 1),
+    base_inf [*inst, chains * P] bool or 0/1, scalars [8, *lead, *inst, P]
+    Montgomery Fr -> (x, y, z) [12, *lead, *inst]."""
+    _check(table_x, 12, "fixed_base_msm table_x")
+    _check(table_y, 12, "fixed_base_msm table_y")
+    if table_y.shape != table_x.shape or table_x.dim() < 3:
+        raise ValueError(f"fixed_base_msm: bad tables {tuple(table_x.shape)}, {tuple(table_y.shape)}")
+    inst = tuple(table_x.shape[1:-2])
+    cp, d = table_x.shape[-2:]
+    if not 1 <= window <= 16 or d != 1 << (window - 1) or chains < 1 or cp < 1 or cp % chains or wpc < 1:
+        raise ValueError(f"fixed_base_msm: bad geometry window {window}, chains {chains}, wpc {wpc}, tables {tuple(table_x.shape)}")
+    n_win = SCALAR_BITS // window + 1
+    if chains * wpc < n_win:
+        raise ValueError(f"fixed_base_msm: {chains} chains of {wpc} windows hold fewer than {n_win} windows")
+    p = cp // chains
+    if tuple(base_inf.shape) != inst + (cp,):
+        raise ValueError(f"fixed_base_msm: expected base_inf {inst + (cp,)}, got {tuple(base_inf.shape)}")
+    inf = base_inf.to(torch.uint8).contiguous()
+    _check(inf, None, "fixed_base_msm base_inf", torch.uint8)
+    scalars = scalars.contiguous()
+    _check(scalars, 8, "fixed_base_msm scalars")
+    ni = len(inst)
+    if scalars.dim() < 2 + ni or tuple(scalars.shape[scalars.dim() - 1 - ni :]) != inst + (p,):
+        raise ValueError(f"fixed_base_msm: scalars {tuple(scalars.shape)} do not end in {inst + (p,)}")
+    if any(t.device != table_x.device for t in (table_y, inf, scalars)):
+        raise ValueError("fixed_base_msm: tables and scalars on different devices")
+    batch = tuple(scalars.shape[1:-1])
+    n_out = scalars[0].numel() // p
+    chord, m, s, g = fixed_base_split(cp)
+    if n_out * wpc * g >= 1 << 31:
+        raise ValueError(f"fixed_base_msm: {n_out} output points are too many for one launch")
+    out = [torch.empty((12,) + batch, dtype=torch.int32, device=scalars.device) for _ in range(3)]
+    if n_out:
+        partials = torch.empty(n_out * wpc * g * 36, dtype=torch.int32, device=scalars.device)
+        n_inst = inf.numel() // cp
+        _launch("fixed_base_msm", scalars.device, scalars.data_ptr(), table_x.data_ptr(), table_y.data_ptr(),
+                inf.data_ptr(), partials.data_ptr(), *(t.data_ptr() for t in out), n_out, n_inst, p, chains,
+                wpc, n_win, window, chord, m, g, s)
+    return tuple(out)

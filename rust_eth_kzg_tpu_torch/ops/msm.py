@@ -12,9 +12,12 @@ Variable base: `pippenger_msm` sorts each window's lanes by bucket with
 `torch.argsort`, takes one suffix scan of complete additions over the sorted
 points and reads the window sum off the scan (see its docstring).
 
-The table reads, the digits, the sorts, the gathers and the selects are
-plain torch; the group operations launch the CUDA kernels through
-`ops/curve.py`.
+On CUDA tensors the fixed-base MSM is the `fixed_base_msm` kernel (digits,
+table reads, window sums and Horner in one source, `csrc/fixed_base_msm.cu`);
+on CPU tensors it is `fixed_base_msm_plain`, the same steps as plain torch,
+which is also the kernel's reference on the card. In Pippenger the digits,
+sorts, gathers and selects are plain torch and the group operations launch
+the CUDA kernels through `ops/curve.py`.
 """
 
 from __future__ import annotations
@@ -26,18 +29,20 @@ import torch
 from ..constants import R_SCALAR, SCALAR_BITS
 from . import curve as C
 from . import field as F
+from . import kernels as K
 
 FR = F.FR
 FP = F.FP
 
 
-def signed_digits(scalars_mont: torch.Tensor, window: int) -> torch.Tensor:
+def signed_digits(scalars_mont: torch.Tensor, window: int, plain: bool = False) -> torch.Tensor:
     """Signed w-bit digits, least significant window first: [n_win, *batch] int64.
 
     k = sum_t d_t 2^(w t) with d_t in [-2^(w-1), 2^(w-1)];
-    n_win = SCALAR_BITS // w + 1 leaves room for the last carry.
+    n_win = SCALAR_BITS // w + 1 leaves room for the last carry. With `plain`
+    the standard form comes from `mont_mul_plain` on any device.
     """
-    std = F.from_mont(FR, scalars_mont).to(torch.int64) & 0xFFFFFFFF
+    std = F.from_mont(FR, scalars_mont, plain=plain).to(torch.int64) & 0xFFFFFFFF
     n_win = SCALAR_BITS // window + 1
     half = 1 << (window - 1)
     full = 1 << window
@@ -162,8 +167,22 @@ def build_fixed_base_msm(
     return FixedBaseMSM(x, y, inf, window, instance_ndim, chains, wpc)
 
 
+def chain_digits(digits: torch.Tensor, chains: int, wpc: int) -> torch.Tensor:
+    """Signed digits [n_win, *batch, P] -> the Lim-Lee chain layout
+    [wpc, *batch, chains * P]: entry [t, ..., c P + p] is digit c wpc + t of
+    scalar p, zero past n_win (chain c's table holds 2^(window wpc c) P)."""
+    if chains == 1:
+        return digits
+    pad = chains * wpc - digits.shape[0]
+    digits = torch.cat((digits, torch.zeros_like(digits[:pad])), dim=0)
+    dd = digits.reshape((chains, wpc) + digits.shape[1:])
+    dd = torch.movedim(dd, 0, -2)  # [wpc, *batch, chains, P]
+    return dd.reshape((wpc,) + dd.shape[1:-2] + (chains * dd.shape[-1],))
+
+
 def _window_sums(tables: FixedBaseMSM, digits: torch.Tensor) -> C.G1:
-    """digits [W, *lead, *inst, CP] -> window sums G1 [W, *lead, *inst]."""
+    """digits [W, *lead, *inst, CP] -> window sums G1 [W, *lead, *inst], by
+    the plain formulas on any device."""
     tx, ty = tables.table_x, tables.table_y
     d = tx.shape[-1]
     inst_cp = tuple(tx.shape[1:-1])
@@ -181,12 +200,31 @@ def _window_sums(tables: FixedBaseMSM, digits: torch.Tensor) -> C.G1:
         h = k // 2
         lo = C.G1Affine(gx[..., :h], gy[..., :h], inf[..., :h])
         hi = C.G1Affine(gx[..., h:], gy[..., h:], inf[..., h:])
-        proj = C.add_affine(lo, hi)
+        proj = C.add_affine_plain(lo, hi)
     else:
         one = FP.broadcast(FP.one(gx.device), gx.shape[1:])
         zero = torch.zeros_like(gx)
         proj = C.G1(F.select(inf, zero, gx), F.select(inf, one, gy), F.select(inf, zero, one))
-    return C.reduce_sum(proj, axis=-1)
+    return C.reduce_sum(proj, axis=-1, plain=True)
+
+
+def fixed_base_msm_plain(tables: FixedBaseMSM, scalars_mont: torch.Tensor) -> C.G1:
+    """`fixed_base_msm` as plain torch on any device: the signed digits in the
+    chain layout, one table entry per (window, lane), the window sums (a chord
+    level and a halving tree) and Horner over the `wpc` windows, most
+    significant first, with the plain formulas (`add_affine_plain`,
+    `reduce_sum(plain=True)`, `double_plain`, `add_plain`). The route for CPU
+    tensors and the kernel's reference on the card."""
+    w = tables.window
+    digits = chain_digits(signed_digits(scalars_mont, w, plain=True), tables.chains, tables.wpc)
+    n_win = digits.shape[0]
+    wsums = _window_sums(tables, digits)  # [n_win, *batch]
+    acc = C._map(lambda c: c[:, n_win - 1], wsums)
+    for t in range(n_win - 2, -1, -1):
+        for _ in range(w):
+            acc = C.double_plain(acc)
+        acc = C.add_plain(acc, C._map(lambda c: c[:, t], wsums))
+    return acc
 
 
 def fixed_base_msm(tables: FixedBaseMSM, scalars_mont: torch.Tensor) -> C.G1:
@@ -194,25 +232,13 @@ def fixed_base_msm(tables: FixedBaseMSM, scalars_mont: torch.Tensor) -> C.G1:
 
     scalars_mont: [8, *batch, P] with P the table's point count (the trailing
     batch axes align with the table's instance axes). Returns G1 [*batch].
+    CPU tensors run `fixed_base_msm_plain`, CUDA tensors the `fixed_base_msm`
+    kernel.
     """
-    w = tables.window
-    digits = signed_digits(scalars_mont, w)  # [n_win, *batch, P]
-    n_win = digits.shape[0]
-    chains, wpc = tables.chains, tables.wpc
-    if chains > 1:
-        pad = chains * wpc - n_win
-        digits = torch.cat((digits, torch.zeros_like(digits[:pad])), dim=0)
-        dd = digits.reshape((chains, wpc) + digits.shape[1:])
-        dd = torch.movedim(dd, 0, -2)  # [wpc, *batch, chains, P]
-        digits = dd.reshape((wpc,) + dd.shape[1:-2] + (chains * dd.shape[-1],))
-        n_win = wpc
-    wsums = _window_sums(tables, digits)  # [n_win, *batch]
-    acc = C._map(lambda c: c[:, n_win - 1], wsums)
-    for t in range(n_win - 2, -1, -1):
-        for _ in range(w):
-            acc = C.double(acc)
-        acc = C.add(acc, C._map(lambda c: c[:, t], wsums))
-    return acc
+    if scalars_mont.device.type == "cpu":
+        return fixed_base_msm_plain(tables, scalars_mont)
+    return C.G1(*K.fixed_base_msm(tables.table_x, tables.table_y, tables.base_inf, scalars_mont,
+                                  tables.window, tables.chains, tables.wpc))
 
 
 # --- variable-base MSM ---

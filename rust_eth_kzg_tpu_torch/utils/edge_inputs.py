@@ -2,9 +2,10 @@
 
 Shared by the card tests (`tests/test_torch_kernels_cuda.py`), the CPU tests
 and `chip_smoke.py`: Montgomery-product operand pairs at the bounds of
-`mont_mul`'s contract, and compressed G1 points of every kind the
+`mont_mul`'s contract, compressed G1 points of every kind the
 decompression meets (subgroup points of both signs, the identity, x off
-the curve, curve points outside the subgroup). Host Python and numpy only.
+the curve, curve points outside the subgroup), and MSM scalars with zero,
+r - 1 and all-zero rows. Host Python and numpy only.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ import random
 
 import numpy as np
 
-from ..constants import P
+from ..constants import P, R_SCALAR
 from ..ops.decompress import parse_compressed_g1_batch
+from ..ops.field import FR
 from . import bls_host as B
 
 
@@ -72,3 +74,23 @@ def decompress_inputs(n, seed):
         raw.append(pool[rnd.randrange(len(pool))])
         kinds.append(kind)
     return parse_compressed_g1_batch(raw), kinds
+
+
+def msm_scalars(shape, seed, edges: bool = True) -> np.ndarray:
+    """Montgomery Fr limbs [8, *shape] int32 of scalars for a fixed-base MSM
+    check: random below r; with `edges` every 7th lane 0, every 11th (from
+    lane 3) r - 1, and the whole first row 0 where the leading axis has more
+    than one row and there is a point axis behind it."""
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    words = np.random.default_rng(seed).integers(0, 2**32, size=(n, 8), dtype=np.uint64)
+    raw = words.astype("<u4").tobytes()
+    vals = [int.from_bytes(raw[32 * i : 32 * (i + 1)], "little") % R_SCALAR for i in range(n)]
+    if not edges:
+        return FR.to_mont_host(vals).reshape((FR.nlimbs,) + shape)
+    vals[::7] = [0] * len(vals[::7])
+    vals[3::11] = [R_SCALAR - 1] * len(vals[3::11])
+    if len(shape) > 1 and shape[0] > 1:
+        row = n // shape[0]
+        vals[:row] = [0] * row
+    return FR.to_mont_host(vals).reshape((FR.nlimbs,) + shape)

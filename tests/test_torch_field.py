@@ -3,6 +3,7 @@ against the JAX package on the same values, compared exactly in canonical
 standard form: the two packages hold different Montgomery residues
 (R = 2^(32 L) here, 2^(15 L) in JAX)."""
 
+import ctypes
 import os
 import re
 
@@ -221,3 +222,21 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError):
         K.g1_decompress(x, torch.zeros(4, dtype=torch.bool), torch.zeros(4, dtype=torch.bool))
     assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("name", [*K.KERNELS, *K.PROBES])
+def test_kernel_entry_points_match_their_argtypes(name):
+    """Each C entry point's parameters, read from its source, are the ctypes
+    argtypes its wrapper passes: a pointer for each `void*`, a 64-bit int
+    for each `long long`, a 32-bit int for each `int` (ctypes would cut or
+    misplace a mismatched argument without an error)."""
+    lib, entry = K.PROBES[name] if name in K.PROBES else (name, K.KERNELS[name][1])
+    with open(os.path.join(K.CSRC, K.KERNELS[lib][0])) as fh:
+        m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", fh.read())
+    assert m, f"{entry} not found in {K.KERNELS[lib][0]}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    kinds = [
+        ctypes.c_void_p if "*" in p else ctypes.c_longlong if "long long" in p else ctypes.c_int
+        for p in params
+    ]
+    assert kinds == K._ARGTYPES[entry]

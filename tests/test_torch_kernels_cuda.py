@@ -15,9 +15,10 @@ from rust_eth_kzg_tpu_torch.ops import decompress as D
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import limbs as LB
+from rust_eth_kzg_tpu_torch.ops import msm as M
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
-from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands
+from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands, msm_scalars
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +159,33 @@ def test_g1_decompress_kernel(device, n):
         assert on[i] == (kind != "off_curve")
         if kind != "off_curve":
             assert sub[i] == (kind != "not_in_subgroup")
+
+
+@pytest.mark.parametrize("n_inst,n_pts,batch", [(128, 64, 1), (128, 64, 2), (0, 64, 1), (0, 2048, 2)],
+                         ids=["fk20_b1", "fk20_b2", "commit_64", "commit_2048_b2"])
+def test_fixed_base_msm_kernel(device, n_inst, n_pts, batch):
+    """The fused fixed-base MSM against fixed_base_msm_plain limb for limb, on
+    window-8, 4-chain tables: the FK20 shape (128 instances of 64 points),
+    the verifier's 64-point commitment table, and a commit key of 2,048
+    points (8,192 lanes a window sum, split over 32 blocks). An identity
+    base point in every table; zero scalars, r - 1, and an all-zero first
+    row where the batch is 2. Two launches of one kernel source, and no
+    g1_add, g1_double or g1_add_affine launch."""
+    inst = (n_inst,) if n_inst else ()
+    n = max(n_inst, 1) * n_pts
+    pts = C.select(torch.arange(n, device=device) % 61 == 3, C.identity((n,), device), _points(n, 30, device))
+    pts = C._map(lambda c: c.reshape((12,) + inst + (n_pts,)).contiguous(), pts)
+    tables = M.build_fixed_base_msm(pts, 8, instance_ndim=len(inst))
+    assert bool(tables.base_inf.any())
+    scalars = torch.from_numpy(msm_scalars((batch,) + inst + (n_pts,), 31 + n_pts)).to(device)
+    before = dict(K.LAUNCHES)
+    got = M.fixed_base_msm(tables, scalars)
+    assert K.LAUNCHES["fixed_base_msm"] == before["fixed_base_msm"] + K.LAUNCHES_PER_CALL["fixed_base_msm"] == before["fixed_base_msm"] + 2
+    assert all(K.LAUNCHES[k] == before[k] for k in K.LAUNCHES if k != "fixed_base_msm")
+    after = dict(K.LAUNCHES)
+    want = M.fixed_base_msm_plain(tables, scalars)
+    assert dict(K.LAUNCHES) == after  # the plain route launches nothing
+    assert all(g.shape == (12, batch) + inst for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if batch > 1:
+        assert bool(C.is_identity(C._map(lambda c: c[:, 0], C.G1(*got))).all())
