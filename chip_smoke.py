@@ -14,7 +14,12 @@ per phase:
                      dependent product (one lane, k = 1 and k = 4,096
                      squarings in a row) and the products per second over
                      2^23 Fp lanes; for g1_fft and g1_decompress the
-                     critical path of their dependent chains;
+                     critical path of their dependent chains; ntt at every
+                     shape the paths run (fft, ifft and the coset forms);
+                     batch_inverse in both modes (a GCD a lane, one a block)
+                     with zero lanes and at the table build's slice (2^20 Fp
+                     lanes, one GCD a block), the two modes timed over a
+                     sweep of sizes and the GCD's one-lane latency;
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
                      prove path: compute_cells_and_kzg_proofs_batch on the
                      zero blob and seven seeded random blobs (zero-blob,
@@ -41,12 +46,19 @@ per phase:
                      G1 transforms as 2 g1_fft launches and its fixed-base
                      MSM as one fixed_base_msm call (2 launches) with no
                      g1_add, g1_double or g1_add_affine launch beside them,
+                     every NTT an ntt call (at most 5 launches a prove, 16
+                     a recover, 2 a verify) and no field_butterfly launch,
                      the verifier's decompression as 1 g1_decompress launch
                      with at most 20 mont_mul launches in the whole call and
                      its commitment MSM as one fixed_base_msm call; every
                      kernel is launched on some path or runs inside one that
                      is and names it in its `replaces` (g1_add_mixed in
-                     g1_decompress, g1_add_affine in fixed_base_msm);
+                     g1_decompress, g1_add_affine in fixed_base_msm,
+                     field_butterfly in ntt);
+  6b. table_free     DASContext(use_precomp=None): no fixed-base table; a
+                     prove B=1, a commitment and a recover B=1 through
+                     Pippenger, byte-equal to the table route, with its
+                     init, prove and recover seconds;
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py);
@@ -219,6 +231,18 @@ def chain_probe(torch, spec, run, device, throughput_lanes=1 << 23, throughput_k
     return out
 
 
+def batch_inverse_imad(K, spec, n):
+    """IMADs that batch_inverse's function needs on n lanes, in either mode:
+    its contract has ceil(n / 32) blocks, so Montgomery's trick does it with
+    one GCD a block and 3 products a lane. A GCD is, each outer iteration, 4
+    linear combinations of N words (2 products of 2 IMADs a word) and 2
+    one-word Montgomery steps (N + 1 products), then one Montgomery product
+    (the 31-step loops' adds and shifts are not counted)."""
+    nl = spec.nlimbs
+    gcd = K.GCD_OUTER[spec.name] * (16 * nl + 4 * nl + 2) + mont_mul_imad(nl)
+    return -(-n // 32) * gcd + 3 * n * mont_mul_imad(nl)
+
+
 def bound(imad, nbytes):
     t_ops = imad / IMAD_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -321,6 +345,7 @@ def phase_kernels(torch, K, F, C, device):
     port's test list, against its plain version on the same card inputs."""
     import numpy as np
 
+    from rust_eth_kzg_tpu_torch.constants import FR_MULTIPLICATIVE_GENERATOR
     from rust_eth_kzg_tpu_torch.ops import limbs as LB
     from rust_eth_kzg_tpu_torch.ops import ntt
     from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands
@@ -372,6 +397,35 @@ def phase_kernels(torch, K, F, C, device):
     for stage in (0, 5):
         compare("field_butterfly", lambda: K.field_butterfly(FR, x, tw, stage),
                 lambda: F.butterfly_plain(FR, x, tw, stage), 0, 0, main=False)
+
+    # ntt: every transform the three paths run, at their shapes: the cells
+    # NTT of prove B=8, [8, 8, 8192] fwd (timed: the main row); the
+    # blob_to_poly ifft [8, 8, 4096], the circulant fft [8, 8 x 64, 128],
+    # recover's coset transforms [8, 8, 8192], the verifier's 64-point
+    # inverse [8, 1024, 64] and the B=1 forms (timed as shapes); each
+    # against Domain._dit_plain with the same scales
+    g = FR_MULTIPLICATIVE_GENERATOR
+    ntt_shapes = {}
+    for n, rows, kind, main in ((8192, 8, "fft", True), (4096, 8, "ifft", False), (128, 512, "fft", False),
+                                (8192, 8, "coset_fft", False), (8192, 8, "coset_ifft", False),
+                                (64, 1024, "ifft", False), (4096, 1, "ifft", False), (128, 64, "fft", False),
+                                (8192, 1, "fft", False), (64, 128, "ifft", False)):
+        dom = ntt.Domain(n, device)
+        _, x = _random_field(FR, rows * n, SEED + 20 + n + rows, device)
+        x = x.reshape(8, rows, n)
+        tag, pre, post = {"fft": ("fwd", None, None), "ifft": ("inv", None, dom._scale("ifft")),
+                          "coset_fft": ("fwd", dom._scale(("coset", g)), None),
+                          "coset_ifft": ("inv", None, dom._scale(("coset_inv", g)))}[kind]
+        scales = (pre is not None) + (post is not None)
+        nbytes = 32 * (2 * rows * n + n + scales * n)
+        imad = rows * (n // 2 * dom.log_size + scales * n) * mont_mul_imad(8)
+        record = None if main else f"ntt_{kind}_{n}x{rows}"
+        compare("ntt", lambda: K.ntt(x, dom._roots[tag], pre, post), lambda: dom._dit_plain(x, tag, pre, post),
+                nbytes, imad, reps=20, record=record, plain_reps=0)
+        if not main:
+            ntt_shapes[record[4:]] = {k: results[record][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            del results[record]
+    results["ntt"]["shapes"] = ntt_shapes
 
     # g1_add: the first complete level of the window-sum tree of one blob,
     # [12, 9, 1, 128, 64]; and 4096 lanes with identity / equal / opposite lanes
@@ -500,20 +554,71 @@ def phase_kernels(torch, K, F, C, device):
         "serial_path_probe_ms": DECOMPRESS_LIVE_PRODUCTS * latency_ms,
     })
 
-    # batch_inverse: the proofs of one blob, Fp [12, 128] (timed); 333 lanes of
-    # both fields and the ragged 32 x 640 Fr case
+    # batch_inverse: the proofs of one blob, Fp [12, 128] (timed; one GCD a
+    # lane; the bound is the function's least work, one GCD a block); the
+    # GCD's edge values and zero lanes in several blocks at the card test's
+    # sizes, both modes; the table build's slice; the two modes timed over a
+    # sweep of sizes (the threshold), and one lane alone (the GCD's latency)
+    from rust_eth_kzg_tpu_torch.utils.edge_inputs import inverse_edge_values
+
     _, z = _random_field(FP, 128, SEED + 12, device)
-    exp_bits = (FP.modulus - 2).bit_count()
     compare("batch_inverse", lambda: K.batch_inverse(FP, z), lambda: F.batch_inverse_plain(FP, z),
-            2 * 48 * 128, (3 * 128 + 4 * (384 + exp_bits)) * mont_mul_imad(12))
-    for spec, nn in ((FR, 333), (FP, 333), (FR, 32 * 640)):
-        ints, z = _random_field(spec, nn, SEED + 13, device)
-        got = K.batch_inverse(spec, z)
-        compare("batch_inverse", lambda: K.batch_inverse(spec, z),
-                lambda: F.batch_inverse_plain(spec, z), 0, 0, main=False)
-        inv = spec.from_mont_host(got.cpu().numpy())
-        check(inv[:64] == [pow(v, -1, spec.modulus) for v in ints[:64]], "batch_inverse head")
-        check(inv[-64:] == [pow(v, -1, spec.modulus) for v in ints[-64:]], "batch_inverse tail")
+            2 * 48 * 128, batch_inverse_imad(K, FP, 128))
+    for spec in (FR, FP):
+        for nn in (1, 128, 333, 1024, 32 * 640 + 5, 65536):
+            ints, z = _random_field(spec, nn, SEED + 13 + nn, device)
+            edges = inverse_edge_values(spec)[:nn]
+            z[:, : len(edges)] = torch.from_numpy(spec.to_mont_host(edges)).to(device)
+            ints[: len(edges)] = edges
+            zeros = [i for i in (nn // 2, nn - 1) if i >= len(edges)]
+            z[:, zeros] = 0
+            want = F.batch_inverse_plain(spec, z)
+            c = -(-nn // 32)
+            dead = {i for i in range(nn) if any(i % c == j % c for j in zeros)}
+            for per_lane in (True, False):
+                compare("batch_inverse", lambda: K.batch_inverse(spec, z, per_lane=per_lane), lambda: want, 0, 0,
+                        main=False)
+            inv = spec.from_mont_host(want.cpu().numpy())
+            check(all(inv[i] == (0 if i in dead else pow(ints[i], -1, spec.modulus)) for i in range(min(nn, 200))),
+                  "batch_inverse equals Python inverses, zero blocks zero")
+    # the table build's slice (ops/msm.py _build_tables: about 2^20 Fp lanes
+    # a batch_normalize), the one run-time shape above the threshold: block
+    # mode, zero lanes in three blocks; random limbs made on the card, the
+    # top limb below p's, so every value is below p
+    nn = 1 << 20
+    check(nn > K.BATCH_INVERSE_PER_LANE_MAX, "the table build's slice runs one GCD a block")
+    g = torch.Generator(device=device).manual_seed(SEED + 16)
+    z = torch.randint(-(2**31), 2**31, (FP.nlimbs, nn), generator=g, device=device, dtype=torch.int32)
+    z[-1] = torch.remainder(z[-1], FP.modulus >> (32 * (FP.nlimbs - 1)))
+    zeros = [5, nn // 2 + 7, nn - 1]
+    z[:, zeros] = 0
+    compare("batch_inverse", lambda: K.batch_inverse(FP, z), lambda: F.batch_inverse_plain(FP, z), 0, 0, main=False)
+    c = nn // 32
+    head = FP.from_mont_host(z[:, :64].cpu().numpy())
+    inv = FP.from_mont_host(K.batch_inverse(FP, z)[:, :64].cpu().numpy())
+    check(all(inv[i] == (0 if any(i % c == j % c for j in zeros) else pow(head[i], -1, FP.modulus))
+              for i in range(64)), "batch_inverse at the table build's slice equals Python inverses")
+    sweep = {}
+    derived = {}
+    for spec in (FP, FR):
+        for nn in (128, 1024, 4096, 16384, 65536, 262144):
+            _, z = _random_field(spec, nn, SEED + 14, device)
+            row = {}
+            for per_lane in (True, False):
+                row["lane_ms" if per_lane else "block_ms"] = cuda_ms(lambda: K.batch_inverse(spec, z, per_lane=per_lane), 5)
+            check(torch.equal(K.batch_inverse(spec, z, per_lane=True), K.batch_inverse(spec, z, per_lane=False)),
+                  "batch_inverse: the two modes agree")
+            sweep[f"{spec.name}_{nn}"] = row
+        one = _random_field(spec, 1, SEED + 15, device)[1]
+        lane_ms = _one_lane_ms(torch, lambda: K.batch_inverse(spec, one, per_lane=True), 50)
+        sweep[f"{spec.name}_gcd_one_lane_ms"] = lane_ms
+        # derived, not read: the one-lane time (launch, the 32-lane zero scan
+        # and the closing product included) over the GCD's static step count
+        steps = K.GCD_OUTER[spec.name] * K.GCD_STEPS
+        derived[f"{spec.name}_gcd_steps"] = steps
+        derived[f"{spec.name}_gcd_step_latency_us_upper"] = lane_ms * 1e3 / steps
+    results["batch_inverse"].update({"sweep": sweep, "critical_path_ms": sweep["fp_gcd_one_lane_ms"]})
+    emit({"phase": "kernels_batch_inverse_derived", "per_lane_max": K.BATCH_INVERSE_PER_LANE_MAX, **derived})
 
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "checked": [
         {"name": k, "ok": v["ok"], "kernel_ms": v["kernel_ms"], "plain_ms": v["plain_ms"]}
@@ -661,6 +766,41 @@ def phase_verify(torch, K, ctx, blobs, out):
     emit({"phase": "verify", "accepted": [128, 1024], "errors": errors,
           "seconds": time.perf_counter() - t0})
     return launches, comms
+
+
+def phase_table_free(torch, api, K, ctx, blobs, out):
+    """DASContext(use_precomp=None) at mainnet geometry: no fixed-base table
+    (the prover's MSMs run msm.lincomb, Pippenger on g1_add / g1_double);
+    a prove B=1, a commitment and a recover B=1 (from the even cells)
+    byte-equal to the table route's."""
+    t0 = time.perf_counter()
+    free = api.DASContext(device=ctx.device, use_precomp=None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(free.prover.tables is None and free.prover.commit_tables is None, "use_precomp=None builds no table")
+    blob = blobs[1]
+    t1 = time.perf_counter()
+    K.reset_launches()
+    proved = free.compute_cells_and_kzg_proofs(blob)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t1
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    check(proved == out[1], "table-free prove B=1: cells and proofs equal the table route's bytes")
+    t2 = time.perf_counter()
+    commitment = free.blob_to_kzg_commitment(blob)
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t2
+    check(commitment == ctx.blob_to_kzg_commitment(blob), "table-free commitment equals the table route's")
+    check(launches.get("fixed_base_msm", 0) == 0 and launches.get("g1_add", 0) > 0,
+          f"table-free prove: Pippenger's g1_add and no fixed_base_msm launch expected: {launches}")
+    keep = list(range(0, 128, 2))
+    t3 = time.perf_counter()
+    recovered = free.recover_cells_and_kzg_proofs(keep, [out[1][0][i] for i in keep])
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t3
+    check(recovered == out[1], "table-free recover B=1: cells and proofs equal the table route's bytes")
+    emit({"phase": "table_free", "init_s": init_s, "prove_b1_s": prove_s, "commit_s": commit_s,
+          "recover_b1_s": recover_s, "launches": launches, "seconds": time.perf_counter() - t0})
 
 
 def phase_mainnet_oracle(torch, api, C, device):
@@ -865,7 +1005,8 @@ def phase_fixed_base_msm(torch, K, C, ctx, results, device):
 KERNEL_FUNCTIONS = {
     "g1_add_affine": "g1_add_affine_kernel", "g1_add_mixed": "g1_add_mixed_kernel",
     "g1_add": "g1_add_kernel", "g1_double": "g1_double_kernel", "mont_mul": "mont_mul_kernel",
-    "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_kernel",
+    "field_butterfly": "butterfly_kernel", "batch_inverse": "batch_inverse_",  # _lanes_kernel, _blocks_kernel
+    "ntt": "ntt_pass_kernel",
     "g1_fft": "g1_fft_kernel", "g1_decompress": "g1_decompress_kernel",
     "fixed_base_msm": "fixed_base_msm_",  # its two launches: _windows_kernel, _horner_kernel
 }
@@ -1062,11 +1203,13 @@ def main() -> int:
         emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
         # every kernel each path runs launched on it; g1_decompress runs only
         # in the verifier (its subgroup ladder holds g1_add_mixed's work),
+        # every scalar NTT is one ntt call (its passes hold field_butterfly's
+        # stages),
         # g1_fft only in the prover's two G1 transforms (prove, and recover's
         # re-prove), fixed_base_msm in every fixed-base MSM (its chord level
         # holds g1_add_affine's work); g1_add and g1_double run in the
         # verifier's Pippenger MSMs only
-        fused_away = {"g1_add_mixed", "g1_add_affine"}
+        fused_away = {"g1_add_mixed", "g1_add_affine", "field_butterfly"}
         expected = {
             "prove": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
             "recover": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
@@ -1086,6 +1229,14 @@ def main() -> int:
                   f"{path}: one fixed_base_msm call ({msm_call} launches) expected: {counts}")
             check(counts["g1_add"] + counts["g1_double"] + counts["g1_add_affine"] == 0,
                   f"{path}: no g1_add, g1_double or g1_add_affine launch expected: {counts}")
+        # whole NTTs: no field_butterfly launch on any path, and at most 5 ntt
+        # launches a prove B=8 (the 4,096-point ifft and the 8,192-point
+        # cells NTT two each, the circulant 128-point NTT one), 16 a recover
+        # B=8, 2 a verify
+        for path, most in (("prove", 5), ("recover", 16), ("verify", 2)):
+            counts = paths[path][1]
+            check(counts["field_butterfly"] == 0 and 1 <= counts["ntt"] <= most,
+                  f"{path}: no field_butterfly launch and 1 to {most} ntt launches expected: {counts}")
         # the verifier's decompression is one fused launch: the square root's
         # products and the subgroup ladder no longer launch one by one; its
         # commitment MSM is one fixed_base_msm call
@@ -1100,6 +1251,7 @@ def main() -> int:
         for k in sorted(set(K.KERNELS) - launched):
             inside = [j for j in launched if K.KERNELS[k][2] in K.KERNELS[j][2]]
             check(inside, f"kernel {k} launched on no path and runs inside no launched kernel")
+        phase_table_free(torch, api, K, ctx, blobs, out)
         phase_mainnet_oracle(torch, api, C, device)
         calls = phase_timing(torch, K, ctx, card, out, comms)
     except CheckFailed as exc:

@@ -81,13 +81,20 @@ def recover_inputs(config: FK20Config, cell_indices, cells):
     return np.ascontiguousarray(flat.T), missing
 
 
+class _DefaultWidth(int):
+    """The default of `DASContext(use_precomp=...)`: the recommended width,
+    told apart by its type from the same width passed explicitly."""
+
+
 class DASContext:
     """EIP-7594 context: cells, proofs and commitments; recovery; cell-proof
     batch verification.
 
     `use_precomp` is the window width of both fixed-base MSM tables at
-    mainnet geometry; `config` sets the geometry and both windows instead
-    (tests use small ones). Passing both is an error. Verification needs the
+    mainnet geometry; None builds no tables: the prover's MSMs then run
+    `msm.lincomb` (Pippenger) over the points themselves. `config` sets the
+    geometry and both windows instead (tests use small ones); passing it
+    with an explicit `use_precomp` is an error. Verification needs the
     setup's G2 points; a setup without them serves the other calls.
     """
 
@@ -95,21 +102,20 @@ class DASContext:
         self,
         device=None,
         trusted_setup: TrustedSetup | None = None,
-        use_precomp: int | None = None,
+        use_precomp: int | None = _DefaultWidth(CONST.RECOMMENDED_PRECOMP_WIDTH),
         config: FK20Config | None = None,
     ):
-        if config is not None and use_precomp is not None:
+        if config is not None and not isinstance(use_precomp, _DefaultWidth):
             raise ValueError("pass either use_precomp or config, not both")
-        if use_precomp is None:
-            use_precomp = CONST.RECOMMENDED_PRECOMP_WIDTH
         self.device = resolve_device(device)
         setup = trusted_setup or TrustedSetup.default()
+        width = None if use_precomp is None else int(use_precomp)
         self.config = config or FK20Config(
             poly_len=CONST.FIELD_ELEMENTS_PER_BLOB,
             coset_size=CONST.FIELD_ELEMENTS_PER_CELL,
             expansion=CONST.EXPANSION_FACTOR,
-            fk20_window=use_precomp,
-            commit_window=use_precomp,
+            fk20_window=width,
+            commit_window=width,
         )
         self.prover = FK20Prover(setup.g1_monomial, self.config, self.device)
         self._init_recovery_and_verifier(setup)
@@ -140,9 +146,17 @@ class DASContext:
                 device=self.device,
             )
 
+    def _blob(self, blob: bytes) -> np.ndarray:
+        """One blob -> standard-form limbs [8, poly_len]: at mainnet geometry
+        the blob codec (its length message names bytes), else the scalar
+        codec at the configured length."""
+        if self.config.poly_len == CONST.FIELD_ELEMENTS_PER_BLOB:
+            return ser.deserialize_blob(blob)
+        return ser.deserialize_scalars(blob, self.config.poly_len)
+
     def _data(self, blobs: list[bytes]) -> torch.Tensor:
         """Blobs -> Montgomery scalars [8, B, poly_len] on the device."""
-        std = np.stack([ser.deserialize_scalars(b, self.config.poly_len) for b in blobs], axis=1)
+        std = np.stack([self._blob(b) for b in blobs], axis=1)
         return F.to_mont(FR, torch.from_numpy(std).to(self.device))
 
     def blob_to_kzg_commitment(self, blob: bytes) -> bytes:

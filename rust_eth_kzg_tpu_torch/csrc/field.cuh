@@ -26,10 +26,12 @@ __constant__ uint32_t FP_MOD[12] = {
 __constant__ uint32_t FP_ONE[12] = {
     0x0002fffd, 0x76090000, 0xc40c0002, 0xebf4000b, 0x53c758ba, 0x5f489857,
     0x70525745, 0x77ce5853, 0xa256ec6d, 0x5c071a97, 0xfa80e493, 0x15f65ec3};
-// p - 2, the Fermat inversion exponent
-__constant__ uint32_t FP_EXP[12] = {
-    0xffffaaa9, 0xb9feffff, 0xb153ffff, 0x1eabfffe, 0xf6b0f624, 0x6730d2a0,
-    0xf38512bf, 0x64774b84, 0x434bacd7, 0x4b1ba7b6, 0x397fe69a, 0x1a0111ea};
+// R^3 2^GCD_OUTER mod p: the binary GCD of batch_inverse.cu leaves
+// x^-1 2^-GCD_OUTER; one Montgomery product by this makes x^-1 R^2, the
+// Montgomery form of the inverse of the element x holds
+__constant__ uint32_t FP_INV_FIX[12] = {
+    0x47dfe23f, 0x5aa83313, 0x472bcebd, 0xa72ed6ed, 0x81c4506a, 0xf1109f20,
+    0xd7caf4f3, 0x1b33e91a, 0xd06473ac, 0x10ba6227, 0x42665e8f, 0x02679ad4};
 // 3 b = 12 in Montgomery form (12 R mod p), the curve constant of the RCB formulas
 __constant__ uint32_t FP_B3[12] = {
     0x0027552e, 0x44760000, 0x43480020, 0xdcb8009a, 0x4a6e8b59, 0x6f7ee9ce,
@@ -45,24 +47,28 @@ __constant__ uint32_t FR_MOD[8] = {
 __constant__ uint32_t FR_ONE[8] = {
     0xfffffffe, 0x00000001, 0x00034802, 0x5884b7fa,
     0xecbc4ff5, 0x998c4fef, 0xacc5056f, 0x1824b159};
-__constant__ uint32_t FR_EXP[8] = {
-    0xffffffff, 0xfffffffe, 0xfffe5bfe, 0x53bda402,
-    0x09a1d805, 0x3339d808, 0x299d7d48, 0x73eda753};
+__constant__ uint32_t FR_INV_FIX[8] = {
+    0xceb832e8, 0x6020db85, 0xe2c245c8, 0x923b6c7f,
+    0xc727ed30, 0x4a44517a, 0x53b6a5cd, 0x4ba85e75};
 
 struct Fp {
   static constexpr int N = 12;
   static constexpr uint32_t N0 = 0xfffcfffdu;  // -p^-1 mod 2^32
+  // outer iterations of batch_inverse.cu's binary GCD: ceil((2 * 381 - 1) / 31) + 1
+  static constexpr int GCD_OUTER = 26;
   __device__ static __forceinline__ uint32_t mod(int i) { return FP_MOD[i]; }
   __device__ static __forceinline__ uint32_t one(int i) { return FP_ONE[i]; }
-  __device__ static __forceinline__ uint32_t exp(int i) { return FP_EXP[i]; }
+  __device__ static __forceinline__ uint32_t inv_fix(int i) { return FP_INV_FIX[i]; }
 };
 
 struct Fr {
   static constexpr int N = 8;
   static constexpr uint32_t N0 = 0xffffffffu;  // -r^-1 mod 2^32
+  // ceil((2 * 255 - 1) / 31) + 1
+  static constexpr int GCD_OUTER = 18;
   __device__ static __forceinline__ uint32_t mod(int i) { return FR_MOD[i]; }
   __device__ static __forceinline__ uint32_t one(int i) { return FR_ONE[i]; }
-  __device__ static __forceinline__ uint32_t exp(int i) { return FR_EXP[i]; }
+  __device__ static __forceinline__ uint32_t inv_fix(int i) { return FR_INV_FIX[i]; }
 };
 
 // --- PTX carry chains ---

@@ -33,9 +33,10 @@ class FK20Config:
     poly_len: int = 4096
     coset_size: int = 64
     expansion: int = 2
-    # window widths of the fixed-base MSM tables
-    fk20_window: int = 8
-    commit_window: int = 8
+    # window widths of the fixed-base MSM tables; None: no table, the MSM
+    # runs `msm.lincomb` over the points
+    fk20_window: int | None = 8
+    commit_window: int | None = 8
 
     @property
     def ext_size(self) -> int:
@@ -68,12 +69,23 @@ def _circulant_index_map(poly_len: int, coset_size: int):
     return idx, mask
 
 
+def _broadcast(points: C.G1, scalars: torch.Tensor) -> C.G1:
+    """Points G1 [*shape] -> [*lead, *shape] for scalars [L, *lead, *shape]."""
+    lead = tuple(scalars.shape[1 : scalars.dim() - points.x.dim() + 1])
+    return C._map(lambda c: c.reshape((c.shape[0],) + (1,) * len(lead) + tuple(c.shape[1:]))
+                  .expand((c.shape[0],) + lead + tuple(c.shape[1:])), points)
+
+
 class FK20Prover:
     """SRS tables and domains on one device; `prove_from_data` runs the prover.
 
     The SRS is reversed, truncated by one coset, strided into coset_size
     vectors, group-FFT'd over the circulant domain and baked into one MSM
-    table per proof slot; the commit key gets its own table.
+    table per proof slot; the commit key gets its own table. A window of
+    None keeps the points instead (`slot_points` [2k, coset],
+    `commit_points` [poly_len]) and its MSMs run `msm.lincomb`, as the JAX
+    package's table-free route does; `tables` and `commit_tables` are then
+    None.
     """
 
     def __init__(self, commit_key_points: list, config: FK20Config, device, tables=None):
@@ -90,6 +102,7 @@ class FK20Prover:
         ci, cm = _circulant_index_map(cfg.poly_len, cfg.coset_size)
         self._circ_idx = torch.as_tensor(ci.reshape(-1), device=device)
         self._circ_mask = torch.as_tensor(cm, device=device)
+        self.slot_points = self.commit_points = None
         if tables is not None:
             self.tables, self.commit_tables = tables
             return
@@ -105,9 +118,17 @@ class FK20Prover:
         dev = C._map(lambda c: c.reshape(-1, cfg.coset_size, 2 * k), dev)
         slot_points = self.circulant_domain.fft_g1(dev)  # [coset, 2k]
         slot_points = C._map(lambda c: c.transpose(1, 2).contiguous(), slot_points)
-        self.tables = M.build_fixed_base_msm(slot_points, cfg.fk20_window, instance_ndim=1)
+        self.tables = None
+        if cfg.fk20_window is None:
+            self.slot_points = slot_points
+        else:
+            self.tables = M.build_fixed_base_msm(slot_points, cfg.fk20_window, instance_ndim=1)
         commit_pts = C.points_to_device(list(srs[: cfg.poly_len]), device)
-        self.commit_tables = M.build_fixed_base_msm(commit_pts, cfg.commit_window)
+        self.commit_tables = None
+        if cfg.commit_window is None:
+            self.commit_points = commit_pts
+        else:
+            self.commit_tables = M.build_fixed_base_msm(commit_pts, cfg.commit_window)
 
     # --- pipeline pieces (all shapes [L, B, ...]) ---
 
@@ -128,7 +149,10 @@ class FK20Prover:
         msm_scalars = F.mont_mul_const(
             FR, col_fft.transpose(-1, -2), self.circulant_domain.size_inv
         )
-        slot_results = M.fixed_base_msm(self.tables, msm_scalars)  # [B, 2k]
+        if self.tables is not None:
+            slot_results = M.fixed_base_msm(self.tables, msm_scalars)  # [B, 2k]
+        else:
+            slot_results = M.lincomb(_broadcast(self.slot_points, msm_scalars), msm_scalars)
         return self.circulant_domain.ifft_g1(slot_results, take_n=k, prescaled=True)
 
     def _proofs_from_h(self, h_comms: C.G1) -> C.G1:
@@ -165,6 +189,8 @@ class FK20Prover:
 
     def commit_from_poly(self, poly: torch.Tensor) -> C.G1:
         """poly [L, B, n] -> commitments G1 [B]."""
+        if self.commit_tables is None:
+            return M.lincomb(_broadcast(self.commit_points, poly), poly)
         return M.fixed_base_msm(self.commit_tables, poly)
 
     def commit_from_data(self, data: torch.Tensor) -> C.G1:

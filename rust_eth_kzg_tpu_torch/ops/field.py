@@ -8,8 +8,10 @@ values, so no operation returns a multiple of p.
 
 `mont_mul` and `batch_inverse` launch the CUDA kernels of `ops/kernels.py`
 for tensors on the card; for tensors on the CPU they run the plain versions
-below (`mont_mul_plain`, `batch_inverse_plain`, `butterfly_plain`), which
-compute the same canonical values with int64 tensor ops. A 32 x 32-bit
+below (`mont_mul_plain`, `batch_inverse_plain`), which compute the same
+canonical values with int64 tensor ops. `butterfly_plain` is one NTT stage:
+the plain version of the standalone `field_butterfly` kernel and the stage
+of `ntt.Domain._dit_plain`. A 32 x 32-bit
 product does not fit a signed int64, so the plain versions work on 16-bit
 halves of each limb, keeping the same R.
 
@@ -214,11 +216,13 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def batch_inverse_plain(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse of [L, N] Montgomery limbs, as the kernel blocks it.
+    """Elementwise inverse of [L, N] Montgomery limbs: the definition of the
+    `batch_inverse` kernel's contract.
 
     Lane i falls in block i mod C (C = ceil(N / 32)) at position i // C;
     each block takes prefix products, one Fermat inversion of its total and
-    a backward pass. A zero lane makes its whole block zero.
+    a backward pass. A zero lane makes its whole block zero. On nonzero
+    lanes the inverse is unique, so the kernel's GCD gives the same limbs.
     """
     n = a.shape[1]
     c = max(1, -(-n // 32))
@@ -346,7 +350,8 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, exponent: int, plain: bool = Fal
 
 
 def batch_inverse(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Elementwise Montgomery inverse (Montgomery's trick in blocks of 32).
+    """Elementwise Montgomery inverse: the `batch_inverse` kernel (a binary
+    GCD) for CUDA tensors, `batch_inverse_plain` for CPU tensors.
 
     A zero lane makes its block zero: callers mask zero lanes first.
     """
@@ -358,9 +363,3 @@ def batch_inverse(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
         out = K.batch_inverse(spec, flat)
     return out.reshape(shape)
 
-
-def butterfly(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, stage: int) -> torch.Tensor:
-    """One NTT stage over [L, rows, n] (see `butterfly_plain`)."""
-    if x.device.type == "cpu":
-        return butterfly_plain(spec, x, tw, stage)
-    return K.field_butterfly(spec, x, tw, stage)

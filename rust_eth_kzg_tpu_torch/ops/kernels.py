@@ -9,7 +9,8 @@ sources compile in parallel.
 Each wrapper below takes CUDA tensors only: it checks device, dtype, shape
 and contiguity, allocates its outputs and scratch with `torch.empty`,
 launches on the current stream, raises if the launch failed, and adds its
-launches to `LAUNCHES[name]` (one, or `LAUNCHES_PER_CALL[name]`). The plain
+launches to `LAUNCHES[name]` (one, `LAUNCHES_PER_CALL[name]`, or for `ntt`
+one a pass). The plain
 versions of the same functions live beside their callers (`ops/field.py`,
 `ops/curve.py`, `ops/msm.py`, `ops/decompress.py`); the callers choose the
 plain version only for tensors on the CPU.
@@ -68,6 +69,11 @@ KERNELS = {
         " rust_eth_kzg_tpu/ops/pallas_kernels.py:210 (g1_add_affine);"
         " as composed by rust_eth_kzg_tpu/ops/msm.py:334 (_window_sums) and :369 (fixed_base_msm)",
     ),
+    "ntt": (
+        "ntt.cu", "kzg_ntt",
+        "rust_eth_kzg_tpu/ops/pallas_kernels.py:243 (field_butterfly; with :365 mont_mul for the scales)"
+        " as composed by rust_eth_kzg_tpu/ops/ntt.py:128 (Domain._dit) and :171-205 (fft, ifft, coset_fft, coset_ifft)",
+    ),
 }
 
 # Further entry points of a kernel's library, not on any path of the port:
@@ -84,7 +90,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "kzg_mont_mul": [_I, _P, _P, _P, _N, _P],
     "kzg_field_butterfly": [_I, _P, _P, _P, _N, _I, _I, _P],
-    "kzg_batch_inverse": [_I, _P, _P, _P, _N, _P],
+    "kzg_batch_inverse": [_I, _P, _P, _P, _N, _I, _P],
     "kzg_g1_add": [_P] * 9 + [_N, _P],
     "kzg_g1_double": [_P] * 6 + [_N, _P],
     "kzg_g1_add_mixed": [_P] * 9 + [_N, _P],
@@ -93,6 +99,7 @@ _ARGTYPES = {
     "kzg_g1_decompress": [_P] * 8 + [_N, _P],
     "kzg_mont_mul_chain": [_I, _P, _P, _N, _I, _P],
     "kzg_fixed_base_msm": [_P] * 8 + [_N, _N] + [_I] * 9 + [_P],
+    "kzg_ntt": [_P] * 6 + [_N, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -219,14 +226,16 @@ def _check(t: torch.Tensor, rows: int | None, what: str, dtype=torch.int32) -> N
         raise ValueError(f"{what}: expected {rows} limb rows, got shape {tuple(t.shape)}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args, count: int | None = None) -> None:
+    """Call `name`'s C entry on the current stream; it launches `count`
+    kernels (default LAUNCHES_PER_CALL[name], else 1)."""
     fn = _fn(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += LAUNCHES_PER_CALL.get(name, 1)
+    LAUNCHES[name] += LAUNCHES_PER_CALL.get(name, 1) if count is None else count
 
 
 def _field_code(spec) -> int:
@@ -273,16 +282,79 @@ def field_butterfly(spec, x: torch.Tensor, tw: torch.Tensor, stage: int) -> torc
     return out
 
 
-def batch_inverse(spec, a: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse of [L, n] Montgomery limbs (blocks of 32)."""
+NTT_MAX_LOG_LINE = 10  # a pass transforms lines of up to 1,024 points in shared memory
+
+
+def ntt_split(log_n: int) -> int:
+    """log n1 of the `ntt` kernel's split of a 2^log_n-point transform: 0
+    (one pass, one launch) up to 1,024 points; above, the four-step split
+    n = n1 n2 with n1 = max(64, n / 1,024) (two launches): pass 1 the n2
+    strided columns of length n1, each output k1 of column j2 times
+    w^(j2 k1); pass 2 the n1 rows of length n2, written transposed."""
+    if not 0 <= log_n <= 2 * NTT_MAX_LOG_LINE:
+        raise ValueError(f"ntt: 2^{log_n} points is outside [1, 2^{2 * NTT_MAX_LOG_LINE}]")
+    return 0 if log_n <= NTT_MAX_LOG_LINE else max(6, log_n - NTT_MAX_LOG_LINE)
+
+
+def ntt(x: torch.Tensor, roots: torch.Tensor, pre=None, post=None) -> torch.Tensor:
+    """The DFT of every row of x [8, rows, n] (Montgomery Fr, natural order
+    in and out) over roots [8, n] (roots[k] = w^k): out[k] = post[k] sum_j
+    pre[j] x[j] w^(j k), with pre and post [8, n] or None. One call: one
+    launch up to 1,024 points, two above (`ntt_split`)."""
+    _check(x, 8, "ntt x")
+    _check(roots, 8, "ntt roots")
+    if x.dim() != 3:
+        raise ValueError(f"ntt: expected x [8, rows, n], got {tuple(x.shape)}")
+    _, rows, n = x.shape
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n or roots.shape != (8, n):
+        raise ValueError(f"ntt: bad shapes x {tuple(x.shape)}, roots {tuple(roots.shape)}")
+    log_n1 = ntt_split(log_n)
+    scales = []
+    for t, what in ((pre, "pre"), (post, "post")):
+        if t is not None:
+            _check(t, 8, f"ntt {what}")
+            if t.shape != (8, n):
+                raise ValueError(f"ntt: expected {what} [8, {n}], got {tuple(t.shape)}")
+        scales.append(None if t is None else t.data_ptr())
+    if any(t is not None and t.device != x.device for t in (roots, pre, post)):
+        raise ValueError("ntt: x, roots and scales on different devices")
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if log_n1 else None
+    if rows:
+        _launch("ntt", x.device, x.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                roots.data_ptr(), *scales, rows, log_n, log_n1, count=2 if log_n1 else 1)
+    return out
+
+
+# lanes up to which `batch_inverse` runs one GCD a lane rather than one a
+# block of 32 behind Montgomery's trick: on the H100 a GCD a lane was the
+# faster at every size from 128 to 65,536 lanes, Fp and Fr (chip_smoke.py's
+# sweep; PERF.md)
+BATCH_INVERSE_PER_LANE_MAX = 65536
+# the GCD's shape: binary-GCD steps an outer iteration (STEPS in
+# batch_inverse.cu) and outer iterations by field (GCD_OUTER in field.cuh,
+# ceil((2 len(p) - 1) / GCD_STEPS) + 1)
+GCD_STEPS = 31
+GCD_OUTER = {"fp": 26, "fr": 18}
+
+
+def batch_inverse(spec, a: torch.Tensor, per_lane: bool | None = None) -> torch.Tensor:
+    """Elementwise inverse of [L, n] Montgomery limbs by a binary GCD; a zero
+    lane makes its block (lanes i = c mod ceil(n / 32)) zero. `per_lane`:
+    one GCD a lane, or one a block behind Montgomery's trick; None picks by
+    n (BATCH_INVERSE_PER_LANE_MAX)."""
     _check(a, spec.nlimbs, "batch_inverse a")
     if a.dim() != 2:
         raise ValueError(f"batch_inverse: expected [L, n], got {tuple(a.shape)}")
     n = a.shape[1]
+    if per_lane is None:
+        per_lane = n <= BATCH_INVERSE_PER_LANE_MAX
     out = torch.empty_like(a)
-    scratch = torch.empty((spec.nlimbs, 32 * (-(-n // 32))), dtype=torch.int32, device=a.device)
+    scratch = None if per_lane else torch.empty((spec.nlimbs, 32 * (-(-n // 32))), dtype=torch.int32, device=a.device)
     if n:
-        _launch("batch_inverse", a.device, _field_code(spec), a.data_ptr(), out.data_ptr(), scratch.data_ptr(), n)
+        _launch("batch_inverse", a.device, _field_code(spec), a.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), n, int(per_lane))
     return out
 
 

@@ -1,11 +1,17 @@
 """Radix-2 NTT over Fr and the G1 group FFT, on torch tensors.
 
 `fft` evaluates a coefficient vector at the domain's roots in natural order
-[f(w^0), f(w^1), ...]; `ifft` inverts it; `fft_g1` / `ifft_g1` run the same
-transform over curve points. Each scalar stage is one `field_butterfly`
-kernel launch (the plain version on the CPU) over every row of the batch;
-the input is bit-reversed first, so the stages are the textbook in-order
-decimation in time. The G1 transform keeps the JAX package's schedule:
+[f(w^0), f(w^1), ...]; `ifft` inverts it; `coset_fft` / `coset_ifft` do the
+same over a coset g H; `fft_g1` / `ifft_g1` run the transform over curve
+points. On CUDA tensors every scalar transform is one `ntt` kernel call
+(one launch up to 1,024 points, two above: the four-step split), natural
+order in and out, with the 1/n of `ifft` and the coset powers fused in as
+per-point scales of its input or output. On CPU tensors it runs
+`Domain._dit_plain`, the kernel's plain version: a bit reversal, then
+log n stages of `field.butterfly_plain` (the textbook in-order decimation
+in time), with the same scales as separate products. Every value is fully
+reduced, so any schedule of the same transform gives the same limbs.
+The G1 transform keeps the JAX package's schedule:
 stage 0 is a plain add/sub, later stages multiply every pair's second
 point by its twiddle with the GLV ladder. On CUDA tensors the whole G1
 transform, every stage and ladder of every row, is one `g1_fft` kernel
@@ -59,52 +65,78 @@ class Domain:
         self.roots = [1] * size
         for i in range(1, size):
             self.roots[i] = self.roots[i - 1] * self.generator % R_SCALAR
+        # per tag: the n powers w^k of the kernel, and the n/2 of a butterfly stage
+        self._roots = {}
         self._tw = {}
         for tag, gen in (("fwd", self.generator), ("inv", self.generator_inv)):
-            pw = [pow(gen, k, R_SCALAR) for k in range(max(size // 2, 1))]
-            self._tw[tag] = torch.from_numpy(FR.to_mont_host(pw)).to(self.device)
+            self._roots[tag] = self._powers(gen)
+            self._tw[tag] = self._roots[tag][:, : max(size // 2, 1)].contiguous()
+        self._scales = {}
         self._g1_digits = {}
+
+    def _powers(self, gen: int, scale: int = 1) -> torch.Tensor:
+        """[scale gen^0, ..., scale gen^(n-1)] in Montgomery form, [L, n] on the device."""
+        pw = [scale % R_SCALAR] * self.size
+        for i in range(1, self.size):
+            pw[i] = pw[i - 1] * gen % R_SCALAR
+        return torch.from_numpy(FR.to_mont_host(pw)).to(self.device)
+
+    def _scale(self, key) -> torch.Tensor:
+        """The per-point scales a transform fuses in, [L, n], cached: "ifft"
+        (1/n at every point), ("coset", g) (g^k on the input of coset_fft)
+        and ("coset_inv", g) ((1/n) g^-k on the output of coset_ifft)."""
+        if key not in self._scales:
+            if key == "ifft":
+                self._scales[key] = self._powers(1, self.size_inv)
+            elif key[0] == "coset":
+                self._scales[key] = self._powers(key[1])
+            else:
+                self._scales[key] = self._powers(pow(key[1], R_SCALAR - 2, R_SCALAR), self.size_inv)
+        return self._scales[key]
 
     # --- scalar transforms: x is [L, *batch, n] Montgomery limbs ---
 
-    def _dit(self, x: torch.Tensor, tag: str) -> torch.Tensor:
-        n = x.shape[-1]
+    def _transform(self, x: torch.Tensor, tag: str, pre=None, post=None) -> torch.Tensor:
+        """The DFT over w (tag "fwd") or w^-1 ("inv") of every row of x, input
+        point k times pre[k] first and output point k times post[k] after:
+        one `ntt` kernel call for CUDA tensors (it refuses a row of another
+        size than the domain's), `_dit_plain` for CPU tensors."""
+        if x.device.type == "cpu":
+            return self._dit_plain(x, tag, pre, post)
+        return K.ntt(x.reshape(FR.nlimbs, -1, x.shape[-1]).contiguous(), self._roots[tag], pre, post).reshape(x.shape)
+
+    def _dit_plain(self, x: torch.Tensor, tag: str, pre=None, post=None) -> torch.Tensor:
+        """The plain version of the `ntt` kernel, on any device: the scales
+        as `mont_mul_plain` products, a bit reversal and log n stages of
+        `butterfly_plain`."""
+        shape = x.shape
+        n = shape[-1]
         if n != self.size:
             raise ValueError(f"expected size {self.size}, got {n}")
-        shape = x.shape
-        x = bit_reverse_permutation(x.reshape(FR.nlimbs, -1, n)).contiguous()
+        x = x.reshape(FR.nlimbs, -1, n)
+        if pre is not None:
+            x = F.mont_mul_plain(FR, x, pre[:, None, :])
+        x = bit_reverse_permutation(x).contiguous()
         for stage in range(self.log_size):
-            x = F.butterfly(FR, x, self._tw[tag], stage)
+            x = F.butterfly_plain(FR, x, self._tw[tag], stage)
+        if post is not None:
+            x = F.mont_mul_plain(FR, x, post[:, None, :])
         return x.reshape(shape)
 
     def fft(self, coeffs: torch.Tensor) -> torch.Tensor:
         """Evaluate at the domain roots (natural order)."""
-        return self._dit(coeffs, "fwd")
+        return self._transform(coeffs, "fwd")
 
     def ifft(self, evals: torch.Tensor) -> torch.Tensor:
-        return F.mont_mul_const(FR, self._dit(evals, "inv"), self.size_inv)
-
-    def _coset_powers(self, gen: int) -> torch.Tensor:
-        """[gen^0, ..., gen^(n-1)] in Montgomery form, [L, n] on the device."""
-        key = ("coset", gen)
-        if key not in self._tw:
-            pw = [1] * self.size
-            for i in range(1, self.size):
-                pw[i] = pw[i - 1] * gen % R_SCALAR
-            self._tw[key] = torch.from_numpy(FR.to_mont_host(pw)).to(self.device)
-        return self._tw[key]
-
-    def _scale(self, x: torch.Tensor, gen: int) -> torch.Tensor:
-        pw = self._coset_powers(gen)
-        return F.mont_mul(FR, x, pw.reshape((FR.nlimbs,) + (1,) * (x.dim() - 2) + (self.size,)))
+        return self._transform(evals, "inv", post=self._scale("ifft"))
 
     def coset_fft(self, coeffs: torch.Tensor, coset_gen: int) -> torch.Tensor:
         """Evaluate over the coset g H: scale coefficient k by g^k, then FFT."""
-        return self.fft(self._scale(coeffs, coset_gen))
+        return self._transform(coeffs, "fwd", pre=self._scale(("coset", coset_gen)))
 
     def coset_ifft(self, evals: torch.Tensor, coset_gen: int) -> torch.Tensor:
         """Inverse of `coset_fft`: IFFT, then scale coefficient k by g^-k."""
-        return self._scale(self.ifft(evals), pow(coset_gen, R_SCALAR - 2, R_SCALAR))
+        return self._transform(evals, "inv", post=self._scale(("coset_inv", coset_gen)))
 
     # --- G1 transforms: p is a G1 with batch shape [B, n] ---
 

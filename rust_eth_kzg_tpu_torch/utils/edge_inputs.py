@@ -38,6 +38,19 @@ def edge_operands(spec, seed=17, n_random=64):
     return [a for a, _ in pairs], [b for _, b in pairs]
 
 
+def inverse_edge_values(spec) -> list:
+    """Nonzero field elements (ints below m) at the edges of the binary GCD of
+    the `batch_inverse` kernel: 1, 2, m - 1, m - 2, (m + 1) / 2, 2^380 mod m,
+    R mod m (whose Montgomery form is R^2 mod m), powers of two and their
+    neighbours, and m - 2^k."""
+    m = spec.modulus
+    vals = [1, 2, m - 1, m - 2, (m + 1) // 2, pow(2, 380, m), spec.r_mod_p]
+    vals += [(1 << k) % m for k in (31, 32, 63, 64, 65, 127, 254, 255, 381)]
+    vals += [((1 << k) - 1) % m for k in (31, 33, 64, 96, 255)]
+    vals += [m - (1 << k) for k in (0, 31, 32, 64, 200)]
+    return list(dict.fromkeys(v for v in vals if v))
+
+
 def off_curve_bytes(rnd: random.Random) -> bytes:
     """Compressed bytes of an x with no point on the curve."""
     while True:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import BYTES_PER_CELL, BYTES_PER_FIELD_ELEMENT, R_SCALAR
+from ..constants import BYTES_PER_BLOB, BYTES_PER_CELL, BYTES_PER_FIELD_ELEMENT, R_SCALAR
 from ..errors import SerializationError
 from ..ops import limbs as L
 
@@ -51,6 +51,13 @@ def deserialize_scalars(data: bytes, expected_len: int | None = None) -> np.ndar
     raw = np.frombuffer(bytes(data), dtype=np.uint8).reshape(n, 32)
     _check_canonical_scalars(raw)
     return L.bytes_be_to_limbs(raw, FR_LIMBS)
+
+
+def deserialize_blob(blob: bytes) -> np.ndarray:
+    """A mainnet blob (BYTES_PER_BLOB bytes) -> standard-form Fr limbs [8, 4096]."""
+    if len(blob) != BYTES_PER_BLOB:
+        raise SerializationError(f"blob has invalid length {len(blob)}, expected {BYTES_PER_BLOB}")
+    return deserialize_scalars(blob)
 
 
 def deserialize_cells_batch(cells, cell_bytes: int = BYTES_PER_CELL) -> np.ndarray:

@@ -18,7 +18,7 @@ from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import limbs as L
 from rust_eth_kzg_tpu_torch.utils import convert
-from rust_eth_kzg_tpu_torch.utils.edge_inputs import edge_operands
+from rust_eth_kzg_tpu_torch.utils.edge_inputs import edge_operands, inverse_edge_values
 
 PAIRS = [(F.FR, JF.FR), (F.FP, JF.FP)]
 IDS = ["fr", "fp"]
@@ -176,11 +176,79 @@ def test_batch_inverse_zero_poisons_its_block():
         assert g == (0 if i % 4 == 3 else pow(v, -1, spec.modulus))
 
 
+def _field_cuh():
+    with open(os.path.join(K.CSRC, "field.cuh")) as fh:
+        return fh.read()
+
+
+_M31 = (1 << 31) - 1
+
+
+def _gcd_inverse_model(spec, x, outer):
+    """csrc/batch_inverse.cu's gcd_inverse, step for step: 64-bit
+    approximations (low 31 bits, 33 bits below the top), 31 binary-GCD steps
+    a batch gathered in a matrix with |f| + |g| <= 2^31, the matrix applied
+    to a, b (exact division by 2^31) and to u, v (one 32-bit Montgomery
+    step), `outer` batches; then the product by R^3 2^outer. x is the
+    stored (Montgomery) value; returns the stored value of the inverse, 0
+    for x = 0."""
+    m = spec.modulus
+    a, b, u, v = x, m, 1, 0
+    for _ in range(outer):
+        n = max(a.bit_length(), b.bit_length(), 64)
+        xa, xb = ((w & _M31) | ((w >> (n - 33)) << 31) for w in (a, b))
+        assert xa < 1 << 64 and xb < 1 << 64
+        f0, g0, f1, g1 = 1, 0, 0, 1
+        for _ in range(K.GCD_STEPS):
+            if xa & 1:
+                if xa < xb:
+                    xa, xb, f0, f1, g0, g1 = xb, xa, f1, f0, g1, g0
+                xa = (xa - xb) >> 1
+                f0, g0 = f0 - f1, g0 - g1
+            else:
+                xa >>= 1
+            f1, g1 = 2 * f1, 2 * g1
+        assert abs(f0) + abs(g0) <= 1 << 31 and abs(f1) + abs(g1) <= 1 << 31
+        na, nb = f0 * a + g0 * b, f1 * a + g1 * b
+        assert na % (1 << 31) == 0 and nb % (1 << 31) == 0
+        na, nb = na >> 31, nb >> 31
+        if na < 0:
+            na, f0, g0 = -na, -f0, -g0
+        if nb < 0:
+            nb, f1, g1 = -nb, -f1, -g1
+        assert na < 1 << (32 * spec.nlimbs) and nb < 1 << (32 * spec.nlimbs)
+
+        def mont(t):
+            q = (t & 0xFFFFFFFF) * spec.n0 & 0xFFFFFFFF
+            r = (t + q * m) >> 32
+            assert -3 * m < 2 * r < 3 * m
+            for _ in range(2):
+                r += m if r < 0 else 0
+            return r - m if r >= m else r
+
+        a, b, u, v = na, nb, mont(f0 * u + g0 * v), mont(f1 * u + g1 * v)
+    assert a == 0
+    if b != 1:
+        return 0
+    fix = pow(spec.r, 3, m) * pow(2, outer, m) % m
+    return v * fix * pow(spec.r, -1, m) % m
+
+
+@pytest.mark.parametrize("spec", [F.FP, F.FR], ids=["fp", "fr"])
+def test_gcd_inverse_model_matches_pow(spec):
+    """The kernel's GCD, modelled at its word sizes, inverts the edge values
+    and seeded random values (as Montgomery forms), and maps 0 to 0."""
+    outer = K.GCD_OUTER[spec.name]
+    m, r = spec.modulus, spec.r_mod_p
+    vals = inverse_edge_values(spec) + _values(spec, 200, 11)[5:]
+    for a in vals:
+        assert _gcd_inverse_model(spec, a * r % m, outer) == pow(a, -1, m) * r % m, a
+    assert _gcd_inverse_model(spec, 0, outer) == 0
+
+
 def test_cuda_constants_match_python():
     """The constants hard-coded in csrc/field.cuh are those of constants.py."""
-    path = os.path.join(os.path.dirname(F.__file__), "..", "csrc", "field.cuh")
-    with open(path) as fh:
-        src = fh.read()
+    src = _field_cuh()
 
     def arr(name):
         body = re.search(name + r"\[\d+\] = \{([^}]*)\}", src).group(1)
@@ -189,7 +257,16 @@ def test_cuda_constants_match_python():
     fp, fr = F.FP, F.FR
     assert arr("FP_MOD") == fp.modulus and arr("FR_MOD") == fr.modulus
     assert arr("FP_ONE") == fp.r_mod_p and arr("FR_ONE") == fr.r_mod_p
-    assert arr("FP_EXP") == fp.modulus - 2 and arr("FR_EXP") == fr.modulus - 2
+    # the GCD's shape, declared in kernels.py: as field.cuh and batch_inverse.cu have it
+    outer = dict(zip(("fp", "fr"), (int(v) for v in re.findall(r"GCD_OUTER = (\d+);", src))))
+    with open(os.path.join(K.CSRC, "batch_inverse.cu")) as fh:
+        steps = [int(v) for v in re.findall(r"constexpr int STEPS = (\d+);", fh.read())]
+    assert outer == K.GCD_OUTER and steps == [K.GCD_STEPS]
+    s = K.GCD_STEPS
+    assert outer == {"fp": -(-(2 * 381 - 1) // s) + 1, "fr": -(-(2 * 255 - 1) // s) + 1}
+    for name, spec in (("FP", fp), ("FR", fr)):
+        want = pow(spec.r, 3, spec.modulus) * pow(2, outer[spec.name], spec.modulus) % spec.modulus
+        assert arr(f"{name}_INV_FIX") == want
     assert arr("FP_B3") == 12 * fp.r_mod_p % fp.modulus
     assert arr("FP_BETA") == GLV_BETA * fp.r_mod_p % fp.modulus
     n0 = [int(v, 16) for v in re.findall(r"N0 = (0x[0-9a-f]+)u", src)]

@@ -156,6 +156,52 @@ def test_das_context_requires_cuda(monkeypatch):
     assert api.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_table_free_route_matches_tables(setup, port_ctx, port_outputs, monkeypatch):
+    """FK20Config(fk20_window=None, commit_window=None) builds no fixed-base
+    table and runs its MSMs by `lincomb`: its cells, proofs and commitment,
+    and its recovery from half of the cells, equal the table route's bytes
+    (held against JAX in test_slice_matches_jax)."""
+
+    def no_tables(*args, **kwargs):
+        raise AssertionError("the table-free route built a fixed-base table")
+
+    monkeypatch.setattr(M, "build_fixed_base_msm", no_tables)
+    cfg = FK20Config(poly_len=64, coset_size=8, expansion=2, fk20_window=None, commit_window=None)
+    free = DASContext(device="cpu", trusted_setup=TrustedSetup(setup[0], setup[4]), config=cfg)
+    assert free.prover.tables is None and free.prover.commit_tables is None
+    blob = setup[3][0]
+    assert free.compute_cells_and_kzg_proofs(blob) == port_outputs[0]
+    assert free.blob_to_kzg_commitment(blob) == port_ctx.blob_to_kzg_commitment(blob)
+    cells = port_outputs[0][0]
+    keep = list(range(1, CFG.num_proofs, 2))
+    assert free.recover_cells_and_kzg_proofs(keep, [cells[i] for i in keep]) == port_outputs[0]
+
+
+def test_use_precomp_none_is_the_table_free_route(monkeypatch):
+    """DASContext(use_precomp=None) asks for mainnet geometry with no tables
+    (the prover is stubbed: no mainnet context is built on the CPU); an
+    explicit use_precomp beside a config is refused, the default is not."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def prover(points, config, device):
+        seen.append(config)
+        raise Stop
+
+    monkeypatch.setattr(api, "FK20Prover", prover)
+    for kwargs in ({"use_precomp": None}, {}, {"use_precomp": 6}, {"config": CFG}):
+        with pytest.raises(Stop):
+            DASContext(device="cpu", trusted_setup=TrustedSetup([None] * 4096), **kwargs)
+    assert [(c.poly_len, c.fk20_window, c.commit_window) for c in seen] == [
+        (4096, None, None), (4096, 8, 8), (4096, 6, 6), (64, 4, 4),
+    ]
+    for width in (None, 8):
+        with pytest.raises(ValueError):
+            DASContext(device="cpu", use_precomp=width, config=CFG)
+
+
 def _sources():
     for root, _, files in os.walk(PORT):
         for f in files:

@@ -18,7 +18,8 @@ from rust_eth_kzg_tpu_torch.ops import limbs as LB
 from rust_eth_kzg_tpu_torch.ops import msm as M
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
-from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands, msm_scalars
+from rust_eth_kzg_tpu_torch.constants import FR_MULTIPLICATIVE_GENERATOR
+from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands, inverse_edge_values, msm_scalars
 
 pytestmark = pytest.mark.cuda
 
@@ -109,11 +110,47 @@ def test_g1_add_mixed_kernel(device):
     assert bool(C.equal(C.G1(*got), C.select(q.inf, p, want)).all())
 
 
-@pytest.mark.parametrize("n", [1, 333, 32 * 640 + 5])
+@pytest.mark.parametrize("n", [1, 128, 333, 1024, 32 * 640 + 5, 65536])
 def test_batch_inverse_kernel(device, n):
+    """The GCD kernel in both modes (a GCD a lane; one a block behind
+    Montgomery's trick) against batch_inverse_plain, Fp and Fr: the GCD's
+    edge values first, and zero lanes in several blocks (lanes i = c mod
+    ceil(n / 32)), whose blocks must come out zero."""
+    c = -(-n // 32)
     for spec in (F.FR, F.FP):
         z = _field(spec, n, 7, device)
-        assert torch.equal(K.batch_inverse(spec, z), F.batch_inverse_plain(spec, z))
+        edges = inverse_edge_values(spec)[:n]
+        z[:, : len(edges)] = torch.from_numpy(spec.to_mont_host(edges)).to(device)
+        zeros = sorted({n - 1, n // 2, 7 % n} - set(range(len(edges)))) if n > 1 else []
+        z[:, zeros] = 0
+        want = F.batch_inverse_plain(spec, z)
+        dead = torch.zeros(n, dtype=torch.bool, device=device)
+        for i in zeros:
+            dead |= torch.arange(n, device=device) % c == i % c
+        assert bool(F.is_zero(spec, want)[dead].all()) and not bool(F.is_zero(spec, want)[~dead].any())
+        for per_lane in (True, False):
+            assert torch.equal(K.batch_inverse(spec, z, per_lane=per_lane), want)
+        assert torch.equal(K.batch_inverse(spec, z), want)
+
+
+@pytest.mark.parametrize("n", [64, 128, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 8])
+def test_ntt_kernel(device, n, rows):
+    """Domain's four transforms on CUDA tensors (one `ntt` call each: one
+    launch up to 1,024 points, two above) against `_dit_plain` with the same
+    scales, limb for limb."""
+    dom = ntt.Domain(n, device)
+    x = _field(F.FR, rows * n, 50 + rows, device).reshape(8, rows, n)
+    g = FR_MULTIPLICATIVE_GENERATOR
+    cases = [(dom.fft, (), "fwd", None, None), (dom.ifft, (), "inv", None, dom._scale("ifft")),
+             (dom.coset_fft, (g,), "fwd", dom._scale(("coset", g)), None),
+             (dom.coset_ifft, (g,), "inv", None, dom._scale(("coset_inv", g)))]
+    for fn, args, tag, pre, post in cases:
+        before = dict(K.LAUNCHES)
+        got = fn(x, *args)
+        assert K.LAUNCHES["ntt"] == before["ntt"] + (2 if n > 1024 else 1)
+        assert all(K.LAUNCHES[k] == before[k] for k in K.LAUNCHES if k != "ntt")
+        assert torch.equal(got, dom._dit_plain(x, tag, pre, post))
 
 
 

@@ -1,7 +1,10 @@
 """Port NTT and G1 FFT (rust_eth_kzg_tpu_torch.ops.ntt, CPU plain versions).
 
-fft / ifft are compared exactly with the JAX package's Domain on the same
-inputs. The G1 transforms are held against a host DFT over points: the JAX
+fft / ifft, and the coset transforms with their scales fused as the `ntt`
+kernel takes them, are compared exactly with the JAX package's Domain on
+the same inputs. The kernel's schedule (one pass, or the four-step split
+with its twiddles and transposed store) is replayed with the plain
+formulas and held equal to `Domain._dit_plain`. The G1 transforms are held against a host DFT over points: the JAX
 G1-FFT takes minutes to compile on the CPU (its 16-point form is compared
 with JAX through the FK20 tables in test_torch_fk20.py). The digit tables
 that the plain route and the `g1_fft` kernel both read are held against
@@ -15,9 +18,10 @@ import torch
 
 from rust_eth_kzg_tpu.ops import field as JF
 from rust_eth_kzg_tpu.ops import ntt as JN
-from rust_eth_kzg_tpu_torch.constants import GLV_NBITS, R_SCALAR
+from rust_eth_kzg_tpu_torch.constants import FR_MULTIPLICATIVE_GENERATOR, GLV_NBITS, R_SCALAR
 from rust_eth_kzg_tpu_torch.ops import curve as C
 from rust_eth_kzg_tpu_torch.ops import field as F
+from rust_eth_kzg_tpu_torch.ops import kernels as K
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
 
@@ -46,6 +50,95 @@ def test_fft_ifft_match_jax(n):
     assert FR.from_mont_host(back.reshape(FR.nlimbs, -1).numpy()) == vals
     jback = jdom.ifft(want)
     assert JF.FR.from_mont_host(np.asarray(jback).reshape(JF.FR.nlimbs, -1)) == vals
+
+
+def _std(t):
+    return FR.from_mont_host(t.reshape(FR.nlimbs, -1).numpy())
+
+
+def _jstd(a):
+    return JF.FR.from_mont_host(np.asarray(a).reshape(JF.FR.nlimbs, -1))
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_scaled_transforms_match_jax(n):
+    """ifft (1/n fused on the output), coset_fft (g^k on the input) and
+    coset_ifft ((1/n) g^-k on the output) against JAX's Domain."""
+    b, g = 2, FR_MULTIPLICATIVE_GENERATOR
+    vals = _scalars(b * n, n + 1)
+    port_in = torch.from_numpy(FR.to_mont_host(vals)).reshape(FR.nlimbs, b, n)
+    jax_in = jnp.asarray(JF.FR.to_mont_host(vals)).reshape(JF.FR.nlimbs, b, n)
+    dom, jdom = ntt.Domain(n, "cpu"), JN.domain(n)
+    assert _std(dom.ifft(port_in)) == _jstd(jdom.ifft(jax_in))
+    fwd = dom.coset_fft(port_in, g)
+    assert _std(fwd) == _jstd(jdom.coset_fft(jax_in, g))
+    assert _std(dom.coset_ifft(port_in, g)) == _jstd(jdom.coset_ifft(jax_in, g))
+    assert _std(dom.coset_ifft(fwd, g)) == vals
+
+
+def _line_dft(lines, roots, log_n):
+    """The kernel's pass over lines [8, R, m]: bit-reversed load, then the
+    stages with twiddle w^(pos n / 2h) read from the n-point table."""
+    m = lines.shape[-1]
+    tw = roots[:, :: (1 << log_n) // m][:, : max(m // 2, 1)]
+    x = ntt.bit_reverse_permutation(lines).contiguous()
+    for stage in range(m.bit_length() - 1):
+        x = F.butterfly_plain(FR, x, tw, stage)
+    return x
+
+
+def _replay_ntt(dom, x, tag, pre, post, log_n1):
+    """The `ntt` kernel's schedule with the plain formulas: the input scale,
+    one pass (log_n1 = 0) or the four-step split n = n1 n2 (columns
+    x[n2 j1 + j2] of length n1, output k1 of column j2 times w^(j2 k1); then
+    the rows of length n2, output k2 of row k1 stored at k1 + n1 k2), the
+    output scale."""
+    nl, rows, n = x.shape
+    roots = dom._roots[tag]
+    if pre is not None:
+        x = F.mont_mul_plain(FR, x, pre[:, None, :])
+    if log_n1 == 0:
+        y = _line_dft(x, roots, dom.log_size)
+    else:
+        n1, n2 = 1 << log_n1, n >> log_n1
+        cols = x.reshape(nl, rows, n1, n2).transpose(2, 3).reshape(nl, rows * n2, n1)
+        y = _line_dft(cols, roots, dom.log_size).reshape(nl, rows, n2, n1)
+        exps = torch.arange(n2)[:, None] * torch.arange(n1)[None, :]
+        y = F.mont_mul_plain(FR, y, roots[:, exps][:, None])
+        y = y.transpose(2, 3).reshape(nl, rows * n1, n2)
+        y = _line_dft(y, roots, dom.log_size).reshape(nl, rows, n1, n2)
+        y = y.transpose(2, 3).reshape(nl, rows, n)
+    if post is not None:
+        y = F.mont_mul_plain(FR, y, post[:, None, :])
+    return y
+
+
+@pytest.mark.parametrize(
+    "n,log_n1", [(64, 0), (128, 0), (256, 4), (4096, K.ntt_split(12))], ids=["64", "128", "256_16x16", "4096"]
+)
+def test_ntt_schedule_replay_matches_dit_plain(n, log_n1):
+    """Every transform the kernel serves (fft; ifft; coset_fft; coset_ifft)
+    through the replayed schedule equals `_dit_plain` limb for limb."""
+    rows, g = 2, FR_MULTIPLICATIVE_GENERATOR
+    dom = ntt.Domain(n, "cpu")
+    x = torch.from_numpy(FR.to_mont_host(_scalars(rows * n, n + 2))).reshape(FR.nlimbs, rows, n)
+    cases = [("fwd", None, None), ("inv", None, dom._scale("ifft")),
+             ("fwd", dom._scale(("coset", g)), None), ("inv", None, dom._scale(("coset_inv", g)))]
+    for tag, pre, post in cases:
+        assert torch.equal(_replay_ntt(dom, x, tag, pre, post, log_n1), dom._dit_plain(x, tag, pre, post))
+
+
+def test_ntt_plan_and_cpu_refusal():
+    """The kernel's split: one pass up to 1,024 points, else n1 = 64 (or n /
+    1,024) and n2 at most 1,024; the wrapper refuses CPU tensors."""
+    assert [K.ntt_split(k) for k in (0, 6, 7, 10, 11, 12, 13, 20)] == [0, 0, 0, 0, 6, 6, 6, 10]
+    for k in range(11, 21):
+        assert 6 <= K.ntt_split(k) <= 10 and k - K.ntt_split(k) <= 10
+    with pytest.raises(ValueError):
+        K.ntt_split(21)
+    dom = ntt.Domain(16, "cpu")
+    with pytest.raises(ValueError):
+        K.ntt(torch.zeros((8, 1, 16), dtype=torch.int32), dom._roots["fwd"])
 
 
 def test_bit_reverse_matches_jax():
