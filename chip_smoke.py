@@ -20,6 +20,10 @@ per phase:
                      with zero lanes and at the table build's slice (2^20 Fp
                      lanes, one GCD a block), the two modes timed over a
                      sweep of sizes and the GCD's one-lane latency;
+                     g1_decompress at the 16 lanes of an EIP-4844 batch of 8,
+                     and g1_add / g1_double as that batch verifier's two
+                     MSMs (lincomb_host over [2, 17] lanes) against their
+                     plain route;
   3. mainnet_setup   DASContext() on the embedded mainnet setup, then the
                      prove path: compute_cells_and_kzg_proofs_batch on the
                      zero blob and seven seeded random blobs (zero-blob,
@@ -39,8 +43,20 @@ per phase:
   5. verify          verify_cell_kzg_proof_batch accepts the port's own
                      proofs (128 cells of one blob; 1,024 cells of 8 blobs)
                      and rejects four tampered batches with the right error;
+  5b. eip4844        the five EIP-4844 calls on the same context and blobs:
+                     the commitments of phase 5; compute_kzg_proof at a cell
+                     element's evaluation point (cell 0 and a seeded cell)
+                     returns that element of phase 3's cells; the three
+                     checks accept at a seeded z and every blob's proof;
+                     the zero blob gives the identity; y + 1, another blob's
+                     proof, a swapped pair, z = r, an off-curve commitment,
+                     a proof outside the subgroup and mismatched lengths are
+                     rejected with the JAX package's error classes; the
+                     empty batch passes;
   6. launches        the kernel launch counts of one call of each path
-                     (prove B=8, recover B=8, verify 1,024 cells), each reset
+                     (prove B=8, recover B=8, verify 1,024 cells,
+                     compute_blob_kzg_proof of one blob,
+                     verify_blob_kzg_proof_batch of 8 blobs), each reset
                      just before its call and read just after: every kernel
                      a path runs must have launched on it, the prover's two
                      G1 transforms as 2 g1_fft launches and its fixed-base
@@ -54,17 +70,34 @@ per phase:
                      kernel is launched on some path or runs inside one that
                      is and names it in its `replaces` (g1_add_mixed in
                      g1_decompress, g1_add_affine in fixed_base_msm,
-                     field_butterfly in ntt);
+                     field_butterfly in ntt); the EIP-4844 prover as one
+                     fixed_base_msm call, at most 2 ntt launches and no G1
+                     transform or per-operation group kernel, its batch
+                     verifier as 1 g1_decompress launch and the g1_add /
+                     g1_double GLV ladders, no g1_fft;
   6b. table_free     DASContext(use_precomp=None): no fixed-base table; a
                      prove B=1, a commitment and a recover B=1 through
                      Pippenger, byte-equal to the table route, with its
                      init, prove and recover seconds;
+  6c. persist        the table snapshot: the mainnet tables saved under a
+                     temporary directory, a DASContext(table_cache=...)
+                     whose init launches no g1_fft and no table-build
+                     kernel, its prove of the 8 blobs byte-equal to phase
+                     3; seconds to save, file bytes, cold init against init
+                     from the snapshot; a snapshot of another geometry or
+                     window refused (the latter rebuilt and saved);
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
-                     oracles (models/naive.py);
+                     oracles (models/naive.py), and compute_kzg_proof at two
+                     z: y = f(z), proof [(f(tau) - y) / (tau - z)] G;
   8. timing          prove B=1 and B=8, verify 128 and 1,024 cells, recover
-                     B=1 and B=8: median of 5 after a warm-up, device busy
-                     time, host share and launches per call.
+                     B=1 and B=8, compute_blob_kzg_proof B=1,
+                     compute_kzg_proof, verify_kzg_proof,
+                     verify_blob_kzg_proof and verify_blob_kzg_proof_batch
+                     of 8 blobs: median of 5 after a warm-up, device busy
+                     time, host share and launches per call; stage splits
+                     of a prove, a verify, a recover and the 8-blob
+                     verify_blob_kzg_proof_batch.
 Then the per-kernel summary line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check exits nonzero.
 Needs one CUDA card; imports nothing of JAX.
@@ -527,7 +560,7 @@ def phase_kernels(torch, K, F, C, device):
     # outside the subgroup in every run (tests/test_torch_kernels_cuda.py).
     from rust_eth_kzg_tpu_torch.ops import decompress as D
 
-    for n, main in ((2048, True), (129, False), (1032, False)):
+    for n, main in ((2048, True), (129, False), (1032, False), (16, False)):
         (xs, sort, inf), kinds = decompress_inputs(1032 if main else n, SEED + 50 + n)
         if main:
             lanes = np.r_[0:8, 1024:2048]
@@ -548,6 +581,17 @@ def phase_kernels(torch, K, F, C, device):
         live = int((~inf_t).sum().item())
         compare("g1_decompress", lambda: K.g1_decompress(x, sb, inf_t), plain, n * (48 + 2 + 3 * 48 + 2),
                 live * DECOMPRESS_LIVE_PRODUCTS * mont_mul_imad(12), reps=10, main=main, plain_reps=0)
+    # g1_add and g1_double at the EIP-4844 batch verifier's shape: its two
+    # MSMs as one lincomb_host over [2, 2B + 1] = [2, 17] lanes (B = 8), an
+    # identity point and zero scalars among them, against the plain route
+    from rust_eth_kzg_tpu_torch.ops import msm as M
+
+    pts, _ = _random_points(C, F, 34, SEED + 60, device)
+    pts = C.select(torch.arange(34, device=device) % 11 == 4, C.identity((34,), device), pts)
+    pts = C._map(lambda c: c.reshape(12, 2, 17).contiguous(), pts)
+    sc = [_random_ints(FR.modulus, 17, SEED + 61), _random_ints(FR.modulus, 8, SEED + 62) + [0] * 9]
+    compare("g1_add", lambda: tuple(M.lincomb_host(pts, sc)), lambda: tuple(M.lincomb_host(pts, sc, plain=True)),
+            0, 0, main=False)
     results["g1_decompress"].update({
         "products_per_live_lane": DECOMPRESS_LIVE_PRODUCTS, "critical_path_products": DECOMPRESS_DEPTH,
         "critical_path_probe_ms": DECOMPRESS_DEPTH * latency_ms,
@@ -668,7 +712,7 @@ def phase_mainnet_setup(torch, api, K, device):
         "cuda_memory_allocated": torch.cuda.memory_allocated(),
         "seconds": time.perf_counter() - t0,
     })
-    return ctx, launches, blobs, out
+    return ctx, launches, blobs, out, init_s
 
 
 def expect_raises(cls, what, fn, *args):
@@ -768,6 +812,93 @@ def phase_verify(torch, K, ctx, blobs, out):
     return launches, comms
 
 
+def _scalar_bytes(v):
+    return v.to_bytes(32, "big")
+
+
+def _launches_of(torch, K, fn):
+    """The kernel launches of one call of fn (counts set to 0 just before,
+    read just after)."""
+    K.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return dict(K.LAUNCHES)
+
+
+def phase_eip4844(torch, K, ctx, blobs, out, comms):
+    """The five EIP-4844 calls on the mainnet context and phase 3's 8 blobs:
+    the commitments phase 5 verified; compute_kzg_proof at the evaluation
+    point of one element of cell 0 and of a seeded cell returns that
+    element of phase 3's cells (the Ruffini remainder held against the FK20
+    path); at a seeded z and at each blob's challenge the three checks
+    accept; the zero blob's commitment and proofs are the identity; seven
+    bad inputs are rejected with the JAX package's error classes; the empty
+    batch passes. Returns the blob proofs and the launches of the two gated
+    paths (compute_blob_kzg_proof of one blob; verify_blob_kzg_proof_batch
+    of the 8 blobs)."""
+    import numpy as np
+
+    from rust_eth_kzg_tpu_torch.constants import R_SCALAR
+    from rust_eth_kzg_tpu_torch.errors import InvalidProofError, SerializationError, VerifierError
+    from rust_eth_kzg_tpu_torch.ops import ntt
+    from rust_eth_kzg_tpu_torch.utils import bls_host as B
+    from rust_eth_kzg_tpu_torch.utils.edge_inputs import not_in_subgroup_bytes, off_curve_bytes
+
+    t0 = time.perf_counter()
+    eip = ctx.eip4844
+    check([eip.blob_to_kzg_commitment(b) for b in blobs] == comms,
+          "Context4844.blob_to_kzg_commitment gives the commitments phase 5 verified")
+    # cell k, element j is f at w^rev(64 k + j), w the 8,192-point root
+    ext = ntt.Domain(8192, "cpu")
+    rev = ntt.bitrev_indices(8192)
+    rng = np.random.default_rng(SEED + 400)
+    elements = []
+    for k in (0, int(rng.integers(1, 128))):
+        j = int(rng.integers(0, 64))
+        z = ext.roots[int(rev[64 * k + j])]
+        _, y = ctx.compute_kzg_proof(blobs[1], _scalar_bytes(z))
+        check(y == out[1][0][k][32 * j : 32 * j + 32], f"compute_kzg_proof at cell {k}'s element {j}: y is that element")
+        elements.append([k, j])
+    z = _random_ints(R_SCALAR, 1, SEED + 401)[0]
+    proof, y = ctx.compute_kzg_proof(blobs[1], _scalar_bytes(z))
+    ctx.verify_kzg_proof(comms[1], _scalar_bytes(z), y, proof)
+    proofs = [ctx.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, comms)]
+    for b, c, p in zip(blobs, comms, proofs):
+        ctx.verify_blob_kzg_proof(b, c, p)
+    prove_launches = _launches_of(torch, K, lambda: ctx.compute_blob_kzg_proof(blobs[2], comms[2]))
+    verify_launches = _launches_of(torch, K, lambda: ctx.verify_blob_kzg_proof_batch(blobs, comms, proofs))
+    ident = B.g1_compress(None)
+    check(comms[0] == ident and proofs[0] == ident, "zero blob: identity commitment and blob proof")
+    check(ctx.compute_kzg_proof(blobs[0], _scalar_bytes(z)) == (ident, bytes(32)), "zero blob: identity proof, y = 0")
+    ctx.verify_blob_kzg_proof_batch([], [], [])
+    y1 = _scalar_bytes((int.from_bytes(y, "big") + 1) % R_SCALAR)
+    swapped = list(proofs)
+    swapped[3], swapped[4] = swapped[4], swapped[3]
+    rnd = random.Random(SEED + 402)
+    errors = {
+        "y_plus_1": expect_raises(InvalidProofError, "y + 1", ctx.verify_kzg_proof, comms[1], _scalar_bytes(z), y1, proof),
+        "another_blobs_proof": expect_raises(InvalidProofError, "another blob's proof", ctx.verify_blob_kzg_proof,
+                                             blobs[1], comms[1], proofs[2]),
+        "swapped_pair": expect_raises(InvalidProofError, "a swapped pair", ctx.verify_blob_kzg_proof_batch,
+                                      blobs, comms, swapped),
+        "non_canonical_z": expect_raises(SerializationError, "z = r", ctx.compute_kzg_proof, blobs[1],
+                                         _scalar_bytes(R_SCALAR)),
+        "off_curve_commitment": expect_raises(SerializationError, "an off-curve commitment", ctx.verify_blob_kzg_proof,
+                                              blobs[1], off_curve_bytes(rnd), proofs[1]),
+        "proof_not_in_subgroup": expect_raises(SerializationError, "a proof outside the subgroup",
+                                               ctx.verify_blob_kzg_proof_batch, blobs[:2], comms[:2],
+                                               [proofs[0], not_in_subgroup_bytes(rnd)]),
+        "mismatched_lengths": expect_raises(VerifierError, "mismatched lengths", ctx.verify_blob_kzg_proof_batch,
+                                            blobs, comms, proofs[:7]),
+    }
+    check(errors["off_curve_commitment"] == "x coordinate not on curve"
+          and errors["proof_not_in_subgroup"] == "point 1: point not in the prime-order subgroup",
+          f"decompression messages as the JAX package's native library gives them: {errors}")
+    emit({"phase": "eip4844", "cell_elements_checked": elements, "blob_proofs_verified": len(proofs),
+          "batch_verified": len(blobs), "errors": errors, "seconds": time.perf_counter() - t0})
+    return proofs, prove_launches, verify_launches
+
+
 def phase_table_free(torch, api, K, ctx, blobs, out):
     """DASContext(use_precomp=None) at mainnet geometry: no fixed-base table
     (the prover's MSMs run msm.lincomb, Pippenger on g1_add / g1_double);
@@ -801,6 +932,82 @@ def phase_table_free(torch, api, K, ctx, blobs, out):
     check(recovered == out[1], "table-free recover B=1: cells and proofs equal the table route's bytes")
     emit({"phase": "table_free", "init_s": init_s, "prove_b1_s": prove_s, "commit_s": commit_s,
           "recover_b1_s": recover_s, "launches": launches, "seconds": time.perf_counter() - t0})
+
+
+TABLE_BUILD_KERNELS = ("g1_fft", "g1_add", "g1_double", "batch_inverse")
+
+
+def phase_persist(torch, api, K, ctx, blobs, out, cold_init_s):
+    """The table snapshot: save the mainnet context's tables under a
+    temporary directory, start a new DASContext(table_cache=path) (its init
+    must launch no g1_fft and none of the table build's kernels), prove the
+    8 blobs byte-equal to phase 3; then a context of another window over the
+    same snapshot refuses it, builds its own tables and saves them there.
+    Also the parts of an init: the embedded setup's parse, a prover's cold
+    build, and the snapshot's read and upload alone."""
+    import tempfile
+
+    from rust_eth_kzg_tpu_torch.models.fk20 import FK20Prover
+    from rust_eth_kzg_tpu_torch.utils import persist
+    from rust_eth_kzg_tpu_torch.utils.trusted_setup import TrustedSetup
+
+    t0 = time.perf_counter()
+    # where an init's time goes: the embedded setup's parse (both inits),
+    # the tables' build (cold) or their read and upload (snapshot)
+    t1 = time.perf_counter()
+    setup = TrustedSetup.default()
+    parse_s = time.perf_counter() - t1
+    cfg = ctx.config
+    geometry = persist.config_geometry(cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    FK20Prover(setup.g1_monomial, cfg, ctx.device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tables.snap")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ctx.save_tables(path)
+        save_s = time.perf_counter() - t1
+        file_bytes = os.path.getsize(path)
+        t1 = time.perf_counter()
+        persist.try_load_tables(path, ctx.prover.srs_fingerprint, cfg.fk20_window, cfg.commit_window, geometry,
+                                ctx.device)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t1
+        K.reset_launches()
+        t2 = time.perf_counter()
+        warm = api.DASContext(device=ctx.device, table_cache=path)
+        torch.cuda.synchronize()
+        load_init_s = time.perf_counter() - t2
+        init_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        check(all(K.LAUNCHES[k] == 0 for k in TABLE_BUILD_KERNELS),
+              f"init from the snapshot: no G1-FFT and no table-build launch expected: {init_launches}")
+        for mine, cold in ((warm.prover.tables, ctx.prover.tables), (warm.prover.commit_tables, ctx.prover.commit_tables)):
+            check(all(torch.equal(getattr(mine, k), getattr(cold, k)) for k in ("table_x", "table_y", "base_inf")),
+                  "the snapshot's tables equal the built ones")
+        check(warm.compute_cells_and_kzg_proofs_batch(blobs) == out,
+              "prove B=8 from the snapshot's tables: phase 3's bytes")
+        del warm
+        check(persist.try_load_tables(path, ctx.prover.srs_fingerprint, cfg.fk20_window, cfg.commit_window,
+                                      (cfg.poly_len, 2 * cfg.coset_size, cfg.expansion), ctx.device) is None,
+              "a snapshot of another geometry is refused")
+        K.reset_launches()
+        t3 = time.perf_counter()
+        other = api.DASContext(device=ctx.device, use_precomp=6, table_cache=path)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t3
+        rebuilt = {k: v for k, v in K.LAUNCHES.items() if v}
+        check(other.prover.tables.window == 6 and rebuilt.get("g1_fft", 0) > 0,
+              f"a snapshot of another window is refused and the tables rebuilt: {rebuilt}")
+        check(persist.try_load_tables(path, other.prover.srs_fingerprint, 6, 6, geometry, ctx.device) is not None,
+              "the rebuilt tables were saved over the snapshot")
+        del other
+    emit({"phase": "persist", "save_s": save_s, "file_bytes": file_bytes, "cold_init_s": cold_init_s,
+          "init_from_snapshot_s": load_init_s, "init_launches": init_launches, "rebuild_window6_s": rebuild_s,
+          "setup_parse_s": parse_s, "prover_build_s": build_s, "snapshot_read_upload_s": read_s,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_mainnet_oracle(torch, api, C, device):
@@ -846,8 +1053,17 @@ def phase_mainnet_oracle(torch, api, C, device):
         want, _ = naive.compute_multi_opening_naive(coeffs, pts, tau)
         check(proofs[k] == B.g1_compress(want), f"proof {k} == [q_k(tau)] G")
         checked.append(k)
+    # EIP-4844: y = f(z) and the proof [(f(tau) - y) / (tau - z)] G at two z
+    f_tau = naive.poly_eval_host(coeffs, tau)
+    for z in _random_ints(R_SCALAR, 2, SEED + 102):
+        proof, y = ctx.compute_kzg_proof(blob, z.to_bytes(32, "big"))
+        want_y = naive.poly_eval_host(coeffs, z)
+        check(int.from_bytes(y, "big") == want_y, "compute_kzg_proof: y == f(z)")
+        q_tau = (f_tau - want_y) * pow(tau - z, -1, R_SCALAR) % R_SCALAR
+        check(proof == B.g1_compress(B.g1_mul(B.G1_GEN, q_tau)), "compute_kzg_proof: proof == [(f(tau) - y) / (tau - z)] G")
     emit({"phase": "mainnet_oracle", "srs_s": srs_s, "init_s": init_s, "proofs_checked": checked,
-          "cells_checked": 128, "commitment_checked": True, "seconds": time.perf_counter() - t0})
+          "cells_checked": 128, "commitment_checked": True, "kzg_proofs_checked": 2,
+          "seconds": time.perf_counter() - t0})
 
 
 # Montgomery products of a chord addition (curve.cuh's g1_add_affine, the
@@ -1060,8 +1276,10 @@ def measure_call(torch, K, fn, reps=5):
     }
 
 
-def phase_timing(torch, K, ctx, card, out, comms):
+def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs):
     import numpy as np
+
+    from rust_eth_kzg_tpu_torch.constants import R_SCALAR
 
     t0 = time.perf_counter()
     calls = {}
@@ -1091,6 +1309,19 @@ def phase_timing(torch, K, ctx, card, out, comms):
             batches.append((idx, [cells[i] for i in idx]))
         calls[f"recover_B{b}"] = measure_call(torch, K, lambda: ctx.recover_cells_and_kzg_proofs_batch(batches))
         no_per_op_msm(f"recover_B{b}", calls[f"recover_B{b}"])
+    # EIP-4844: one blob's proofs and checks, and the batch check of 8 blobs
+    blob, comm = blobs[1], comms[1]
+    z = _scalar_bytes(_random_ints(R_SCALAR, 1, SEED + 403)[0])
+    proof, y = ctx.compute_kzg_proof(blob, z)
+    calls["compute_blob_kzg_proof_B1"] = measure_call(torch, K, lambda: ctx.compute_blob_kzg_proof(blob, comm))
+    no_per_op_msm("compute_blob_kzg_proof_B1", calls["compute_blob_kzg_proof_B1"])
+    calls["compute_kzg_proof"] = measure_call(torch, K, lambda: ctx.compute_kzg_proof(blob, z))
+    calls["verify_kzg_proof"] = measure_call(torch, K, lambda: ctx.verify_kzg_proof(comm, z, y, proof))
+    calls["verify_blob_kzg_proof"] = measure_call(torch, K, lambda: ctx.verify_blob_kzg_proof(blob, comm, blob_proofs[1]))
+    calls["verify_blob_kzg_proof_batch_8"] = measure_call(
+        torch, K, lambda: ctx.verify_blob_kzg_proof_batch(blobs, comms, blob_proofs))
+    check(calls["verify_blob_kzg_proof_batch_8"]["launches"]["g1_decompress"] == 1,
+          "verify_blob_kzg_proof_batch: 1 g1_decompress launch a call")
     emit({"phase": "timing", "card": card, "calls": calls,
           "stages_ms": _stage_times(torch, ctx, _random_blob(SEED + 7)),
           "verify_stages_ms": {
@@ -1098,6 +1329,7 @@ def phase_timing(torch, K, ctx, card, out, comms):
               "verify_1024": _verify_stage_times(torch, ctx, verify_batch(out, comms, 8)),
           },
           "recover_stages_ms": _recover_stage_times(torch, ctx, batches),
+          "verify_blob_batch_8_stages_ms": _verify_4844_stage_times(torch, ctx, blobs, comms, blob_proofs),
           "seconds": time.perf_counter() - t0})
     return calls
 
@@ -1129,6 +1361,25 @@ def _verify_stage_times(torch, ctx, args):
     inputs = stage("prepare_upload", ctx.verifier.prepare, *vargs)
     outputs = stage("device", verify_device, ctx.verifier, *inputs.tensors)
     stage("fetch_flags_pairing", ctx.verifier.check, inputs, outputs)
+    return stages
+
+
+def _verify_4844_stage_times(torch, ctx, blobs, comms, proofs):
+    """Host-clock ms of each stage of one verify_blob_kzg_proof_batch, through
+    the functions it composes: the points' decompression (one launch), the
+    blobs' challenges, the polynomial evaluations, the r powers, the two
+    MSMs and the pairing."""
+    from rust_eth_kzg_tpu_torch.utils import fiat_shamir as fs
+    from rust_eth_kzg_tpu_torch.utils import serialization as ser
+
+    eip = ctx.eip4844
+    stages, stage = _timed_stages(torch)
+    cs, pfs = stage("decompress", ser.decompress_g1_groups, [comms, proofs], ctx.device)
+    zs = stage("challenges", eip.challenges, blobs, comms)
+    ys = stage("evaluations", eip.evaluate, blobs, zs)
+    r_powers = stage("r_powers", fs.compute_r_powers_blob_batch, ctx.config.poly_len, comms, zs, ys, proofs, len(blobs))
+    lhs, rhs = stage("msms", eip.verifier.batch_points, cs, zs, ys, pfs, r_powers)
+    stage("pairing", eip.verifier.pairing_check, lhs, rhs)
     return stages
 
 
@@ -1191,14 +1442,17 @@ def main() -> int:
         emit({"phase": "build_native", "library": os.path.relpath(native.library_path(), REPO),
               "seconds": time.perf_counter() - native_s})
         results = phase_kernels(torch, K, F, C, device)
-        ctx, prove_launches, blobs, out = phase_mainnet_setup(torch, api, K, device)
+        ctx, prove_launches, blobs, out, init_s = phase_mainnet_setup(torch, api, K, device)
         phase_fixed_base_msm(torch, K, C, ctx, results, device)
         recover_launches = phase_recover(torch, K, ctx, out)
         verify_launches, comms = phase_verify(torch, K, ctx, blobs, out)
+        blob_proofs, prove_4844_launches, verify_4844_launches = phase_eip4844(torch, K, ctx, blobs, out, comms)
         paths = {
             "prove": ("compute_cells_and_kzg_proofs_batch, 8 blobs", prove_launches),
             "recover": ("recover_cells_and_kzg_proofs_batch, 8 blobs, 64 of 128 cells each", recover_launches),
             "verify": ("verify_cell_kzg_proof_batch, 1,024 cells of 8 blobs", verify_launches),
+            "prove_4844": ("compute_blob_kzg_proof, 1 blob", prove_4844_launches),
+            "verify_4844": ("verify_blob_kzg_proof_batch, 8 blobs", verify_4844_launches),
         }
         emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
         # every kernel each path runs launched on it; g1_decompress runs only
@@ -1210,10 +1464,16 @@ def main() -> int:
         # holds g1_add_affine's work); g1_add and g1_double run in the
         # verifier's Pippenger MSMs only
         fused_away = {"g1_add_mixed", "g1_add_affine", "field_butterfly"}
+        # the EIP-4844 prover checks its commitment (g1_decompress) and runs
+        # the blob's inverse NTT, the Ruffini scan (mont_mul) and one
+        # fixed-base MSM; its batch verifier decompresses every point in one
+        # launch and runs its two MSMs as GLV ladders (g1_add, g1_double)
         expected = {
             "prove": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
             "recover": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
             "verify": set(K.KERNELS) - fused_away - {"g1_fft"},
+            "prove_4844": {"g1_decompress", "mont_mul", "ntt", "fixed_base_msm", "batch_inverse"},
+            "verify_4844": {"g1_decompress", "mont_mul", "ntt", "g1_add", "g1_double", "batch_inverse"},
         }
         for path, (_, counts) in paths.items():
             missing = sorted(k for k in expected[path] if counts[k] <= 0)
@@ -1245,6 +1505,20 @@ def main() -> int:
         check(counts["mont_mul"] <= 20, f"verify: at most 20 mont_mul launches expected: {counts}")
         check(counts["fixed_base_msm"] == msm_call and counts["g1_add_affine"] == 0,
               f"verify: one fixed_base_msm call and no g1_add_affine launch expected: {counts}")
+        # the EIP-4844 prover: one fixed_base_msm call over the commit key, at
+        # most 2 ntt launches (the blob's 4,096-point inverse), no G1
+        # transform and no per-operation group kernel; its batch verifier:
+        # exactly 1 g1_decompress launch for all 16 points, the GLV ladders'
+        # g1_add and g1_double, no G1 transform
+        counts = paths["prove_4844"][1]
+        check(counts["fixed_base_msm"] == msm_call and counts["ntt"] <= 2
+              and all(counts[k] == 0 for k in ("g1_fft", "g1_add", "g1_double", "g1_add_affine", "field_butterfly")),
+              f"prove_4844: one fixed_base_msm call, at most 2 ntt launches, no g1_fft, g1_add, g1_double, "
+              f"g1_add_affine or field_butterfly launch expected: {counts}")
+        counts = paths["verify_4844"][1]
+        check(counts["g1_decompress"] == 1 and counts["g1_add"] > 0 and counts["g1_double"] > 0
+              and counts["g1_fft"] == 0,
+              f"verify_4844: 1 g1_decompress launch, g1_add and g1_double launches, no g1_fft expected: {counts}")
         # every kernel launched on some path, or its work runs inside a
         # launched kernel whose `replaces` names its TPU kernel
         launched = {k for k in K.KERNELS if any(n[k] > 0 for _, n in paths.values())}
@@ -1252,8 +1526,9 @@ def main() -> int:
             inside = [j for j in launched if K.KERNELS[k][2] in K.KERNELS[j][2]]
             check(inside, f"kernel {k} launched on no path and runs inside no launched kernel")
         phase_table_free(torch, api, K, ctx, blobs, out)
+        phase_persist(torch, api, K, ctx, blobs, out, init_s)
         phase_mainnet_oracle(torch, api, C, device)
-        calls = phase_timing(torch, K, ctx, card, out, comms)
+        calls = phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -1,15 +1,23 @@
-"""Public API of the port: `DASContext` for EIP-7594 (PeerDAS).
+"""Public API of the port: `DASContext` (EIP-7594, PeerDAS) and
+`Context4844` (EIP-4844).
 
-The prover calls (`compute_cells_and_kzg_proofs(_batch)`, `compute_cells`,
-`blob_to_kzg_commitment`), erasure recovery
-(`recover_cells_and_kzg_proofs(_batch)`) and cell-proof batch verification
-(`verify_cell_kzg_proof_batch`). Function names, validation order and error
-semantics mirror rust_eth_kzg_tpu/api.py (and through it the reference's
-eip7594 crate): raw bytes in, raw bytes out. `device` picks the card; it
-defaults to "cuda" and the context never falls back to the CPU on its own.
+`DASContext`: the prover calls (`compute_cells_and_kzg_proofs(_batch)`,
+`compute_cells`, `blob_to_kzg_commitment`), erasure recovery
+(`recover_cells_and_kzg_proofs(_batch)`), cell-proof batch verification
+(`verify_cell_kzg_proof_batch`), the five EIP-4844 calls of its `eip4844`
+context, and the snapshot of its tables (`table_cache`, `save_tables`,
+`load_tables`). `Context4844`: `blob_to_kzg_commitment`,
+`compute_kzg_proof`, `compute_blob_kzg_proof`, `verify_kzg_proof`,
+`verify_blob_kzg_proof` and `verify_blob_kzg_proof_batch`. Function names,
+validation order and error semantics mirror rust_eth_kzg_tpu/api.py (and
+through it the reference's eip7594 and eip4844 crates): raw bytes in, raw
+bytes out. `device` picks the card; it defaults to "cuda" and a context
+never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -19,11 +27,14 @@ from .errors import RecoveryError, SerializationError, VerifierError
 from .models import cosets
 from .models.fk20 import FK20Config, FK20Prover, recover_and_prove
 from .models.fk20_verifier import FK20Verifier
+from .models.kzg_single import SingleOpenProver, SingleOpenVerifier
 from .models.reed_solomon import ReedSolomon
 from .ops import curve as C
 from .ops import field as F
+from .ops import poly as POLY
 from .utils import bls_host as bls
 from .utils import fiat_shamir as fs
+from .utils import persist
 from .utils import serialization as ser
 from .utils.trusted_setup import TrustedSetup
 
@@ -81,14 +92,158 @@ def recover_inputs(config: FK20Config, cell_indices, cells):
     return np.ascontiguousarray(flat.T), missing
 
 
+class _BlobContext:
+    """What `DASContext` and `Context4844` share: the blob codec at the
+    prover's geometry and the commitment. Subclasses set `config`, `device`
+    and `prover`."""
+
+    config: FK20Config
+    device: torch.device
+    prover: FK20Prover
+
+    def _blob(self, blob: bytes) -> np.ndarray:
+        """One blob -> standard-form limbs [8, poly_len]: at mainnet geometry
+        the blob codec (its length message names bytes), else the scalar
+        codec at the configured length."""
+        if self.config.poly_len == CONST.FIELD_ELEMENTS_PER_BLOB:
+            return ser.deserialize_blob(blob)
+        return ser.deserialize_scalars(blob, self.config.poly_len)
+
+    def _data(self, blobs: list[bytes]) -> torch.Tensor:
+        """Blobs -> Montgomery scalars [8, B, poly_len] on the device."""
+        std = np.stack([self._blob(b) for b in blobs], axis=1)
+        return F.to_mont(FR, torch.from_numpy(std).to(self.device))
+
+    def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
+        commitment = self.prover.commit_from_data(self._data([blob]))
+        return bls.g1_compress(C.points_from_device(commitment)[0])
+
+
+def _deserialize_scalar_checked(data: bytes) -> int:
+    """32 big-endian bytes -> a canonical scalar, with the JAX package's messages."""
+    if len(data) != CONST.BYTES_PER_FIELD_ELEMENT:
+        raise SerializationError(f"scalar has invalid length {len(data)}, expected 32")
+    value = int.from_bytes(data, "big")
+    if value >= CONST.R_SCALAR:
+        raise SerializationError("scalar is not canonical")
+    return value
+
+
+class Context4844(_BlobContext):
+    """EIP-4844 blob calls over an FK20 prover's commit key and a setup's
+    generators (the reference's eip4844 crate).
+
+    Proofs divide the blob's polynomial by (X - z) on the device and commit
+    to the quotient through the commit key (`SingleOpenProver`); one
+    opening is checked with host arithmetic and the native pairing, a batch
+    with two MSMs on the device and two pairings (`SingleOpenVerifier`).
+    Points are decompressed on the device, one launch a call. A setup
+    without G2 points serves the prover calls only.
+    """
+
+    def __init__(self, prover: FK20Prover, setup: TrustedSetup | None = None):
+        self.prover = prover
+        self.config = prover.config
+        self.device = prover.device
+        self.verifier = None
+        if setup is not None and len(setup.g2_monomial) >= 2:
+            self.verifier = SingleOpenVerifier(setup.g1_monomial[0], setup.g2_monomial[0], setup.g2_monomial[1],
+                                               self.device)
+
+    def _prover(self) -> SingleOpenProver:
+        # read at each call: load_tables may replace the prover's tables
+        return SingleOpenProver(self.prover.commit_tables, self.prover.commit_points)
+
+    def _verifier(self) -> SingleOpenVerifier:
+        if self.verifier is None:
+            raise ValueError("this context's trusted setup has no G2 points: it cannot verify")
+        return self.verifier
+
+    def _z(self, zs: list[int]) -> torch.Tensor:
+        return torch.from_numpy(FR.to_mont_host(zs)).to(self.device)
+
+    def _open(self, data: torch.Tensor, z: int):
+        """(proof bytes, y) of one blob's polynomial at z; data [8, 1, n]."""
+        poly = self.prover.blob_to_poly(data)
+        proof, y = self._prover().compute_kzg_proof(poly, self._z([z]))
+        return bls.g1_compress(C.points_from_device(proof)[0]), FR.from_mont_host(y.cpu().numpy())[0]
+
+    # --- prover ---
+
+    def compute_kzg_proof(self, blob: bytes, z: bytes) -> tuple[bytes, bytes]:
+        """(proof, y = f(z)) of the blob's polynomial f at the scalar z."""
+        data = self._data([blob])
+        proof, y = self._open(data, _deserialize_scalar_checked(z))
+        return proof, y.to_bytes(32, "big")
+
+    def compute_blob_kzg_proof(self, blob: bytes, commitment: bytes) -> bytes:
+        """The proof at the blob's Fiat-Shamir challenge; the commitment is
+        checked (decompression, subgroup) but not recomputed."""
+        data = self._data([blob])
+        ser.decompress_g1_groups([[commitment]], self.device, batch=False)
+        return self._open(data, fs.compute_blob_challenge(blob, commitment))[0]
+
+    # --- verifier ---
+
+    def _pair(self, commitment: bytes, proof: bytes):
+        """A commitment and a proof, decompressed in one launch, as host points."""
+        groups = ser.decompress_g1_groups([[commitment], [proof]], self.device, batch=False)
+        return tuple(ser.points_to_host(g)[0] for g in groups)
+
+    def verify_kzg_proof(self, commitment: bytes, z: bytes, y: bytes, proof: bytes) -> None:
+        """None if the proof opens the commitment to y at z; SerializationError
+        for malformed bytes, InvalidProofError for a failed check."""
+        verifier = self._verifier()
+        c, pf = self._pair(commitment, proof)
+        z_int, y_int = _deserialize_scalar_checked(z), _deserialize_scalar_checked(y)
+        verifier.verify_kzg_proof(c, z_int, y_int, pf)
+
+    def verify_blob_kzg_proof(self, blob: bytes, commitment: bytes, proof: bytes) -> None:
+        verifier = self._verifier()
+        c, pf = self._pair(commitment, proof)
+        z = self.challenges([blob], [commitment])[0]
+        verifier.verify_kzg_proof(c, z, self.evaluate([blob], [z])[0], pf)
+
+    def verify_blob_kzg_proof_batch(self, blobs: list[bytes], commitments: list[bytes], proofs: list[bytes]) -> None:
+        """None if every blob's proof verifies (an empty batch does);
+        VerifierError for lists of different lengths, SerializationError for
+        malformed bytes, InvalidProofError when the batch fails its check."""
+        verifier = self._verifier()
+        if not len(blobs) == len(commitments) == len(proofs):
+            raise VerifierError(
+                "batch verification inputs must have the same length: "
+                f"{len(blobs)} blobs, {len(commitments)} commitments, {len(proofs)} proofs"
+            )
+        if not blobs:
+            return
+        commitments, proofs = [bytes(c) for c in commitments], [bytes(p) for p in proofs]
+        cs, pfs = ser.decompress_g1_groups([commitments, proofs], self.device)
+        zs = self.challenges(blobs, commitments)
+        ys = self.evaluate(blobs, zs)
+        r_powers = fs.compute_r_powers_blob_batch(self.config.poly_len, commitments, zs, ys, proofs, len(blobs))
+        verifier.verify_kzg_proof_batch(cs, zs, ys, pfs, r_powers)
+
+    @staticmethod
+    def challenges(blobs: list[bytes], commitments: list[bytes]) -> list[int]:
+        """Each blob's Fiat-Shamir evaluation point (host hashes)."""
+        return [fs.compute_blob_challenge(bytes(b), bytes(c)) for b, c in zip(blobs, commitments)]
+
+    def evaluate(self, blobs: list[bytes], zs: list[int]) -> list[int]:
+        """y_i = f_i(z_i) for every blob, in one device pass (blob_to_poly,
+        then poly_eval over [8, B, n])."""
+        y = POLY.poly_eval(self.prover.blob_to_poly(self._data(blobs)), self._z(zs))
+        return FR.from_mont_host(y.cpu().numpy())
+
+
 class _DefaultWidth(int):
     """The default of `DASContext(use_precomp=...)`: the recommended width,
     told apart by its type from the same width passed explicitly."""
 
 
-class DASContext:
+class DASContext(_BlobContext):
     """EIP-7594 context: cells, proofs and commitments; recovery; cell-proof
-    batch verification.
+    batch verification; and, through `eip4844` (a `Context4844` over the
+    same prover and setup), the EIP-4844 calls.
 
     `use_precomp` is the window width of both fixed-base MSM tables at
     mainnet geometry; None builds no tables: the prover's MSMs then run
@@ -96,6 +251,9 @@ class DASContext:
     geometry and both windows instead (tests use small ones); passing it
     with an explicit `use_precomp` is an error. Verification needs the
     setup's G2 points; a setup without them serves the other calls.
+    `table_cache` (default: the KZG_TPU_TABLE_CACHE variable) is the path
+    of a table snapshot: a matching one replaces the table build, else the
+    built tables are saved there.
     """
 
     def __init__(
@@ -104,6 +262,7 @@ class DASContext:
         trusted_setup: TrustedSetup | None = None,
         use_precomp: int | None = _DefaultWidth(CONST.RECOMMENDED_PRECOMP_WIDTH),
         config: FK20Config | None = None,
+        table_cache: str | None = None,
     ):
         if config is not None and not isinstance(use_precomp, _DefaultWidth):
             raise ValueError("pass either use_precomp or config, not both")
@@ -117,7 +276,9 @@ class DASContext:
             fk20_window=width,
             commit_window=width,
         )
-        self.prover = FK20Prover(setup.g1_monomial, self.config, self.device)
+        if table_cache is None:
+            table_cache = os.environ.get("KZG_TPU_TABLE_CACHE") or None
+        self.prover = FK20Prover(setup.g1_monomial, self.config, self.device, table_cache=table_cache)
         self._init_recovery_and_verifier(setup)
 
     @classmethod
@@ -145,23 +306,38 @@ class DASContext:
                 num_cosets=cfg.num_proofs,
                 device=self.device,
             )
+        self.eip4844 = Context4844(self.prover, setup)
 
-    def _blob(self, blob: bytes) -> np.ndarray:
-        """One blob -> standard-form limbs [8, poly_len]: at mainnet geometry
-        the blob codec (its length message names bytes), else the scalar
-        codec at the configured length."""
-        if self.config.poly_len == CONST.FIELD_ELEMENTS_PER_BLOB:
-            return ser.deserialize_blob(blob)
-        return ser.deserialize_scalars(blob, self.config.poly_len)
+    # --- the table snapshot ---
 
-    def _data(self, blobs: list[bytes]) -> torch.Tensor:
-        """Blobs -> Montgomery scalars [8, B, poly_len] on the device."""
-        std = np.stack([self._blob(b) for b in blobs], axis=1)
-        return F.to_mont(FR, torch.from_numpy(std).to(self.device))
+    def save_tables(self, path: str) -> None:
+        """Write the prover's fixed-base tables to `path` (utils/persist.py),
+        for a later `DASContext(table_cache=path)` or `load_tables`."""
+        persist.save_prover_tables(self.prover, path)
 
-    def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
-        commitment = self.prover.commit_from_data(self._data([blob]))
-        return bls.g1_compress(C.points_from_device(commitment)[0])
+    def load_tables(self, path: str) -> bool:
+        """Take the prover's tables from the snapshot at `path`; False, and
+        nothing changed, if it does not match this context."""
+        return persist.load_prover_tables(self.prover, path)
+
+    # --- EIP-4844 (blob_to_kzg_commitment is shared with Context4844) ---
+
+    def compute_kzg_proof(self, blob: bytes, z: bytes):
+        return self.eip4844.compute_kzg_proof(blob, z)
+
+    def compute_blob_kzg_proof(self, blob: bytes, commitment: bytes) -> bytes:
+        return self.eip4844.compute_blob_kzg_proof(blob, commitment)
+
+    def verify_kzg_proof(self, commitment: bytes, z: bytes, y: bytes, proof: bytes) -> None:
+        return self.eip4844.verify_kzg_proof(commitment, z, y, proof)
+
+    def verify_blob_kzg_proof(self, blob: bytes, commitment: bytes, proof: bytes) -> None:
+        return self.eip4844.verify_blob_kzg_proof(blob, commitment, proof)
+
+    def verify_blob_kzg_proof_batch(self, blobs: list[bytes], commitments: list[bytes], proofs: list[bytes]) -> None:
+        return self.eip4844.verify_blob_kzg_proof_batch(blobs, commitments, proofs)
+
+    # --- PeerDAS ---
 
     def compute_cells_and_kzg_proofs(self, blob: bytes):
         return self.compute_cells_and_kzg_proofs_batch([blob])[0]

@@ -22,6 +22,7 @@ from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as M
 from ..ops import ntt
+from ..utils import persist
 
 FR = F.FR
 
@@ -85,10 +86,12 @@ class FK20Prover:
     None keeps the points instead (`slot_points` [2k, coset],
     `commit_points` [poly_len]) and its MSMs run `msm.lincomb`, as the JAX
     package's table-free route does; `tables` and `commit_tables` are then
-    None.
+    None. With `table_cache` (a path; both windows set) the tables come from
+    that snapshot when it matches (`utils/persist.py`: no SRS G1-FFT, no
+    table build), else they are built and saved there.
     """
 
-    def __init__(self, commit_key_points: list, config: FK20Config, device, tables=None):
+    def __init__(self, commit_key_points: list, config: FK20Config, device, tables=None, table_cache=None):
         cfg = config
         if cfg.poly_len % cfg.coset_size:
             raise ValueError("poly_len must be a multiple of coset_size")
@@ -103,6 +106,11 @@ class FK20Prover:
         self._circ_idx = torch.as_tensor(ci.reshape(-1), device=device)
         self._circ_mask = torch.as_tensor(cm, device=device)
         self.slot_points = self.commit_points = None
+        self.srs_fingerprint = "" if commit_key_points is None else persist.srs_fingerprint(commit_key_points)
+        cache = table_cache if cfg.fk20_window is not None and cfg.commit_window is not None else None
+        if tables is None and cache:
+            tables = persist.try_load_tables(cache, self.srs_fingerprint, cfg.fk20_window, cfg.commit_window,
+                                             persist.config_geometry(cfg), self.device)
         if tables is not None:
             self.tables, self.commit_tables = tables
             return
@@ -129,6 +137,8 @@ class FK20Prover:
             self.commit_points = commit_pts
         else:
             self.commit_tables = M.build_fixed_base_msm(commit_pts, cfg.commit_window)
+        if cache:
+            persist.save_prover_tables(self, cache)
 
     # --- pipeline pieces (all shapes [L, B, ...]) ---
 

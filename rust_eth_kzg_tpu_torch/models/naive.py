@@ -13,15 +13,14 @@ from ..utils import bls_host as bls
 
 def insecure_setup(num_g1: int, num_g2: int, tau: int = 1234567):
     """Monomial SRS [tau^i] G1 and [tau^i] G2 with known tau (test-only);
-    returns (g1 points, g2 points, tau)."""
-    g1s, acc = [], 1
-    for _ in range(num_g1):
-        g1s.append(bls.g1_mul(bls.G1_GEN, acc))
-        acc = acc * tau % R_SCALAR
-    g2s, acc = [], 1
-    for _ in range(num_g2):
-        g2s.append(bls.g2_mul(bls.G2_GEN, acc))
-        acc = acc * tau % R_SCALAR
+    returns (g1 points, g2 points, tau). Each point is tau times the last,
+    a short scalar multiplication for a small tau."""
+    g1s = [bls.G1_GEN][:num_g1]
+    while len(g1s) < num_g1:
+        g1s.append(bls.g1_mul(g1s[-1], tau))
+    g2s = [bls.G2_GEN][:num_g2]
+    while len(g2s) < num_g2:
+        g2s.append(bls.g2_mul(g2s[-1], tau))
     return g1s, g2s, tau
 
 

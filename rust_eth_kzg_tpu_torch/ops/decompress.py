@@ -39,42 +39,56 @@ _HALF_P_PLUS_1 = (P - 1) // 2 + 1
 SUBGROUP_SCALAR = BLS_X**2 - 1
 
 
-def parse_compressed_g1_batch(points: list[bytes]):
-    """Byte-level validation and x extraction (host, vectorized).
+# the byte-level error classes, in the order a point is checked for them
+BYTE_ERRORS = (
+    "uncompressed G1 encodings are not accepted",
+    "invalid infinity encoding",
+    "coordinate not canonical",
+)
 
-    Returns (x_std [12, N] int32 standard-form limbs, sort_bits [N] bool,
-    inf [N] bool). Raises SerializationError naming the first offending index
-    for the byte-level error classes: length, compression bit, infinity
-    encoding, non-canonical x. On-curve and subgroup failures are found on
-    the device (`decompress_g1`).
-    """
-    for i, p in enumerate(points):
-        if len(p) != 48:
-            raise SerializationError(f"G1 point {i} has invalid length {len(p)}, expected 48")
+
+def parse_compressed_g1_codes(points: list[bytes]):
+    """Byte-level validation and x extraction (host, vectorized), lane by
+    lane: returns (x_std [12, N] int32 standard-form limbs, sort_bits [N]
+    bool, inf [N] bool, code [N] int8), code 0 for a well-formed lane, else
+    1 + the index in BYTE_ERRORS of the first check it fails (x is zero on
+    such a lane). Every point must be 48 bytes long."""
     n = len(points)
     raw = np.frombuffer(b"".join(bytes(p) for p in points), np.uint8).reshape(n, 48).copy()
     flags = raw[:, 0]
     comp = (flags & 0x80) != 0
     inf = (flags & 0x40) != 0
     sort = (flags & 0x20) != 0
-    if not comp.all():
-        idx = int(np.argmin(comp))
-        raise SerializationError(f"point {idx}: uncompressed G1 encodings are not accepted")
     raw[:, 0] &= 0x1F
     bad_inf = inf & (sort | raw.any(axis=1))
-    if bad_inf.any():
-        idx = int(np.argmax(bad_inf))
-        raise SerializationError(f"point {idx}: invalid infinity encoding")
     # canonicity: x < p, a lexicographic big-endian compare (non-infinity lanes)
     diff = raw.astype(np.int16) - _P_BYTES.astype(np.int16)
     first = np.argmax(diff != 0, axis=1)
     ge_p = diff[np.arange(n), first] >= 0  # all-equal rows compare >= too
     bad_canon = ge_p & ~inf
-    if bad_canon.any():
-        idx = int(np.argmax(bad_canon))
-        raise SerializationError(f"point {idx}: coordinate not canonical")
+    code = np.where(~comp, 1, np.where(bad_inf, 2, np.where(bad_canon, 3, 0))).astype(np.int8)
+    raw[code != 0] = 0
     words = np.ascontiguousarray(raw[:, ::-1]).view("<u4")  # [N, 12] little-endian words
     x_std = np.ascontiguousarray(words.T).astype(np.uint32).view(np.int32)
+    return x_std, sort, inf, code
+
+
+def parse_compressed_g1_batch(points: list[bytes]):
+    """Byte-level validation and x extraction (host, vectorized).
+
+    Returns (x_std [12, N] int32 standard-form limbs, sort_bits [N] bool,
+    inf [N] bool). Raises SerializationError naming the first offending index
+    for the byte-level error classes, one class after another: length,
+    compression bit, infinity encoding, non-canonical x. On-curve and
+    subgroup failures are found on the device (`decompress_g1`).
+    """
+    for i, p in enumerate(points):
+        if len(p) != 48:
+            raise SerializationError(f"G1 point {i} has invalid length {len(p)}, expected 48")
+    x_std, sort, inf, code = parse_compressed_g1_codes(points)
+    for k, message in enumerate(BYTE_ERRORS, 1):
+        if (code == k).any():
+            raise SerializationError(f"point {int(np.argmax(code == k))}: {message}")
     return x_std, sort, inf
 
 

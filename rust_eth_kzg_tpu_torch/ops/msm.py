@@ -10,7 +10,9 @@ Horner loop over the `wpc` windows of one chain.
 
 Variable base: `pippenger_msm` sorts each window's lanes by bucket with
 `torch.argsort`, takes one suffix scan of complete additions over the sorted
-points and reads the window sum off the scan (see its docstring).
+points and reads the window sum off the scan (see its docstring);
+`lincomb_host`, for scalars known on the host, runs one GLV ladder a lane
+and a halving sum.
 
 On CUDA tensors the fixed-base MSM is the `fixed_base_msm` kernel (digits,
 table reads, window sums and Horner in one source, `csrc/fixed_base_msm.cu`);
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..constants import R_SCALAR, SCALAR_BITS
@@ -332,3 +335,26 @@ def lincomb(points: C.G1, scalars_mont: torch.Tensor) -> C.G1:
     """
     n = points.x.shape[-1]
     return pippenger_msm(points, scalars_mont, min(8, max(4, n.bit_length() - 4)))
+
+
+def lincomb_host(points: C.G1, scalars, plain: bool = False) -> C.G1:
+    """Variable-base MSM sum_i k_i P_i over the last axis, for scalars that
+    are host integers (the EIP-4844 batch verifier): each lane's GLV split
+    (`curve.glv_digits_host`) and ladder (`curve.scalar_mul_glv`: on CUDA
+    tensors the `g1_add` and `g1_double` kernels), then `curve.reduce_sum`.
+
+    points: G1 [*batch, N]; scalars: ints nested as [*batch][N] (any values:
+    reduced mod r). Returns G1 [*batch]. An identity point or a zero scalar
+    contributes the identity. With `plain` the plain formulas run on any
+    device: the reference of the kernels' route on the card.
+    """
+    batch = tuple(points.batch_shape)
+    flat = np.asarray(scalars, dtype=object).reshape(-1)
+    if flat.shape[0] != points.x[0].numel():
+        raise ValueError(f"lincomb_host: {flat.shape[0]} scalars for points of shape {batch}")
+    digits, neg1, neg2 = C.glv_digits_host([int(k) for k in flat])
+    dev = points.device
+    digits = torch.from_numpy(digits).to(dev).reshape((digits.shape[0],) + batch)
+    neg1, neg2 = (torch.from_numpy(a).to(dev).reshape(batch) for a in (neg1, neg2))
+    per_point = C.scalar_mul_glv(points, digits, neg1, neg2, plain=plain)
+    return C.reduce_sum(per_point, axis=-1, plain=plain)

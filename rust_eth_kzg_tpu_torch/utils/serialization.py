@@ -1,16 +1,24 @@
 """Byte codecs between the wire format and limb arrays.
 
 Canonical big-endian scalars (each must be < r), blobs and cells of scalars,
-with the validation rules of the consensus specs.
+with the validation rules of the consensus specs; compressed G1 points,
+decompressed with their subgroup checks on the device (`ops/decompress.py`:
+the `g1_decompress` kernel on CUDA tensors) with the error texts of the JAX
+package's native library.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..constants import BYTES_PER_BLOB, BYTES_PER_CELL, BYTES_PER_FIELD_ELEMENT, R_SCALAR
+from ..constants import BYTES_PER_BLOB, BYTES_PER_CELL, BYTES_PER_FIELD_ELEMENT, BYTES_PER_G1_POINT, R_SCALAR
 from ..errors import SerializationError
+from ..ops import curve as C
+from ..ops import decompress as D
+from ..ops import field as F
 from ..ops import limbs as L
+from . import bls_host as bls
 
 FR_LIMBS = 8
 
@@ -76,3 +84,82 @@ def deserialize_cells_batch(cells, cell_bytes: int = BYTES_PER_CELL) -> np.ndarr
 def serialize_scalars(std_limbs) -> bytes:
     """Canonical standard-form limbs [8, N] -> N * 32 big-endian bytes."""
     return L.limbs_to_bytes_be(np.asarray(std_limbs))
+
+
+# --- compressed G1 points ---
+
+G1_ERRORS = (*D.BYTE_ERRORS, "x coordinate not on curve", "point not in the prime-order subgroup")
+
+
+def decompress_g1_groups(groups, device, batch: bool = True) -> list[C.G1]:
+    """Groups of compressed G1 points -> one G1 [len(group)] (Montgomery, Z
+    one or zero) per group on `device`, every point of every group
+    decompressed and subgroup-checked in one `decompress.decompress_g1` call
+    (on an error, the points before the first byte-level failure).
+
+    Errors come in the order of one validating call a group, one after
+    another: each group as one `deserialize_g1_batch` (`batch`: the lengths
+    of the group first; a message names the point's index in its group),
+    or, a group of one point each, as one `deserialize_g1` (no index). The
+    first failure raises SerializationError.
+    """
+    groups = [[bytes(p) for p in g] for g in groups]
+    stop, length_error = len(groups), None
+    for gi, group in enumerate(groups):
+        bad = [i for i, p in enumerate(group) if len(p) != BYTES_PER_G1_POINT]
+        if bad:
+            i, n = bad[0], len(group[bad[0]])
+            where = f"G1 point {i}" if batch else "G1 point"
+            stop, length_error = gi, f"{where} has invalid length {n}, expected {BYTES_PER_G1_POINT}"
+            break
+    flat = [p for group in groups[:stop] for p in group]
+    points = C.identity((0,), device)
+    if flat:
+        x_std, sort, inf, code = D.parse_compressed_g1_codes(flat)
+        # the lanes before the first byte-level error go to the device
+        live = int(np.argmax(code != 0)) if code.any() else len(flat)
+        if live:
+            x, sort_t, inf_t = (torch.from_numpy(a[..., :live]).to(device) for a in (x_std, sort, inf))
+            points, on_curve, in_subgroup = D.decompress_g1(x, sort_t, inf_t)
+            on_curve, in_subgroup = on_curve.cpu().numpy(), in_subgroup.cpu().numpy()
+            code[:live] = np.where(~on_curve, 4, np.where(~in_subgroup, 5, 0))
+        if code.any():
+            j = int(np.argmax(code != 0))
+            sizes = np.cumsum([len(g) for g in groups[:stop]])
+            gi = int(np.searchsorted(sizes, j, side="right"))
+            i = j - (int(sizes[gi - 1]) if gi else 0)
+            message = G1_ERRORS[code[j] - 1]
+            raise SerializationError(f"point {i}: {message}" if batch else message)
+    if length_error is not None:
+        raise SerializationError(length_error)
+    out, start = [], 0
+    for group in groups:
+        out.append(C._map(lambda c: c[:, start : start + len(group)], points))
+        start += len(group)
+    return out
+
+
+def points_to_host(points: C.G1) -> list:
+    """Decompressed points (Z one or zero, Montgomery) -> host affine (x, y)
+    ints, None for the identity; no kernel launch."""
+    fp = F.FP
+    xs, ys = (fp.from_mont_host(c.reshape(fp.nlimbs, -1).cpu().numpy()) for c in points[:2])
+    inf = F.is_zero(fp, points.z).reshape(-1).cpu().numpy()
+    return [None if i else (x, y) for x, y, i in zip(xs, ys, inf)]
+
+
+def deserialize_g1(data: bytes, device):
+    """48 bytes -> host affine (x, y) ints, or None for the identity;
+    decompressed and subgroup-checked on `device`. Messages as the JAX
+    package's single-point form (no index)."""
+    return points_to_host(decompress_g1_groups([[data]], device, batch=False)[0])[0]
+
+
+def serialize_g1(point) -> bytes:
+    return bls.g1_compress(point)
+
+
+def deserialize_g1_batch(points: list[bytes], device) -> list:
+    """Compressed points -> host affine points / None, in one decompression
+    launch on `device`; a message names the first bad point's index."""
+    return points_to_host(decompress_g1_groups([points], device)[0])

@@ -24,6 +24,11 @@ from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
 from rust_eth_kzg_tpu_torch.utils import convert
 
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
+
 FP = F.FP
 
 

@@ -20,6 +20,11 @@ from rust_eth_kzg_tpu_torch.ops import limbs as L
 from rust_eth_kzg_tpu_torch.utils import convert
 from rust_eth_kzg_tpu_torch.utils.edge_inputs import edge_operands, inverse_edge_values
 
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
+
 PAIRS = [(F.FR, JF.FR), (F.FP, JF.FP)]
 IDS = ["fr", "fp"]
 

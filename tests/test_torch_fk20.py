@@ -41,6 +41,11 @@ from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
 from rust_eth_kzg_tpu_torch.utils import convert
 
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
+
 CFG = FK20Config(poly_len=64, coset_size=8, expansion=2, fk20_window=4, commit_window=4)
 JCFG = JFK.FK20Config(poly_len=64, coset_size=8, expansion=2, fk20_window=4, commit_window=4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -186,7 +191,7 @@ def test_use_precomp_none_is_the_table_free_route(monkeypatch):
     class Stop(Exception):
         pass
 
-    def prover(points, config, device):
+    def prover(points, config, device, **kwargs):
         seen.append(config)
         raise Stop
 

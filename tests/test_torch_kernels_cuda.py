@@ -18,7 +18,7 @@ from rust_eth_kzg_tpu_torch.ops import limbs as LB
 from rust_eth_kzg_tpu_torch.ops import msm as M
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
-from rust_eth_kzg_tpu_torch.constants import FR_MULTIPLICATIVE_GENERATOR
+from rust_eth_kzg_tpu_torch.constants import FR_MULTIPLICATIVE_GENERATOR, R_SCALAR
 from rust_eth_kzg_tpu_torch.utils.edge_inputs import decompress_inputs, edge_operands, inverse_edge_values, msm_scalars
 
 pytestmark = pytest.mark.cuda
@@ -196,6 +196,49 @@ def test_g1_decompress_kernel(device, n):
         assert on[i] == (kind != "off_curve")
         if kind != "off_curve":
             assert sub[i] == (kind != "not_in_subgroup")
+
+
+def test_g1_decompress_kernel_eip4844_batch(device):
+    """The 16 lanes of an EIP-4844 batch of 8 (commitments and proofs in one
+    launch) against decompress_g1_plain: identity, off-curve and
+    non-subgroup lanes among them."""
+    (x, sort, inf), kinds = decompress_inputs(16, 56)
+    assert {"identity", "off_curve", "not_in_subgroup"} <= set(kinds)
+    x, sort, inf = torch.from_numpy(x).to(device), torch.from_numpy(sort).to(device), torch.from_numpy(inf).to(device)
+    before = dict(K.LAUNCHES)
+    got = D.decompress_g1(x, sort, inf)
+    assert K.LAUNCHES["g1_decompress"] == before["g1_decompress"] + 1
+    want = D.decompress_g1_plain(x, sort, inf)
+    assert all(torch.equal(g, w) for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])))
+
+
+def test_lincomb_host_eip4844_batch(device):
+    """lincomb_host at the EIP-4844 batch verifier's 17 lanes (2B + 1, B = 8),
+    as its two MSMs ([2, 17]: identity points and zero scalars among them),
+    on the g1_add and g1_double kernels, against the plain route; and the
+    sums against host arithmetic."""
+    n = 17
+    lanes = torch.arange(2 * n, device=device)
+    pts = C.select(lanes % 7 == 3, C.identity((2 * n,), device), _points(2 * n, 57, device))
+    pts = C._map(lambda c: c.reshape(12, 2, n).contiguous(), pts)
+    rng = np.random.default_rng(58)
+    scalars = [[int(v) ** 4 % R_SCALAR for v in rng.integers(1, 2**62, size=n)] for _ in range(2)]
+    scalars[0][5] = 0
+    scalars[1][8:] = [0] * (n - 8)
+    before = dict(K.LAUNCHES)
+    got = M.lincomb_host(pts, scalars)
+    assert K.LAUNCHES["g1_add"] > before["g1_add"] and K.LAUNCHES["g1_double"] > before["g1_double"]
+    assert K.LAUNCHES["g1_fft"] == before["g1_fft"]
+    want = M.lincomb_host(pts, scalars, plain=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    host = C.points_from_device(C._map(lambda c: c.reshape(12, -1), pts))
+    sums = []
+    for r in range(2):
+        acc = None
+        for p, k in zip(host[r * n : (r + 1) * n], scalars[r]):
+            acc = B.g1_add(acc, B.g1_mul(p, k) if p is not None else None)
+        sums.append(acc)
+    assert C.points_from_device(got) == sums
 
 
 @pytest.mark.parametrize("n_inst,n_pts,batch", [(128, 64, 1), (128, 64, 2), (0, 64, 1), (0, 2048, 2)],

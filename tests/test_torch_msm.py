@@ -28,6 +28,11 @@ from rust_eth_kzg_tpu_torch.ops import msm as M
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
 from rust_eth_kzg_tpu_torch.utils.edge_inputs import msm_scalars
 
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
+
 FR = F.FR
 SPECIAL = [0, 1, R_SCALAR - 1, (1 << 255) % R_SCALAR]
 

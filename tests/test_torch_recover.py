@@ -36,6 +36,11 @@ from rust_eth_kzg_tpu_torch.ops import limbs as LB
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import serialization as ser
 
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
+
 FR = F.FR
 MAINNET = FK20Config()
 SMALL = FK20Config(poly_len=64, coset_size=8, expansion=2, fk20_window=4, commit_window=4)

@@ -7,6 +7,7 @@ geometry a blob of the wrong length is named by its byte length, by the
 codec and through `DASContext`'s blob dispatch, as in the JAX package."""
 
 import pytest
+import torch
 
 from rust_eth_kzg_tpu import errors as JE
 from rust_eth_kzg_tpu.utils import serialization as JSER
@@ -14,6 +15,11 @@ from rust_eth_kzg_tpu_torch import DASContext, FK20Config
 from rust_eth_kzg_tpu_torch import errors as E
 from rust_eth_kzg_tpu_torch.constants import BYTES_PER_BLOB, R_SCALAR
 from rust_eth_kzg_tpu_torch.utils import serialization as ser
+
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
 
 ABOVE_IN_LAST_WORD = R_SCALAR + 1
 ABOVE_IN_WORD_0 = R_SCALAR + (1 << 192)

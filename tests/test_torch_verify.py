@@ -19,6 +19,7 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from rust_eth_kzg_tpu import api as JAPI
 from rust_eth_kzg_tpu import errors as JE
@@ -42,6 +43,11 @@ from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
 from rust_eth_kzg_tpu_torch.utils import fiat_shamir as fs
 from rust_eth_kzg_tpu_torch.utils import native
+
+# One intra-op thread: the plain versions run many small tensor ops, and
+# beside other busy processes (xdist workers, XLA compiles) a thread pool
+# stalls each op until all its threads are scheduled.
+torch.set_num_threads(1)
 
 CFG = FK20Config(poly_len=64, coset_size=8, expansion=2, fk20_window=4, commit_window=4)
 MAINNET_CELL = 2048
