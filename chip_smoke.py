@@ -31,7 +31,8 @@ per phase:
                      last kernel of phase 2, fixed_base_msm, against its
                      plain version on the prover's mainnet tables (the FK20
                      slot MSMs of 1 blob timed, of 8 blobs timed as
-                     "wide"), the verifier's 64-point commitment table and
+                     "wide"; a rank's slot slice at work = 2 and 4), the
+                     verifier's 64-point commitment table and
                      the 4,096-point commit key (zero scalars, r - 1,
                      all-zero rows, identity base points), with its work
                      from this run's digits and the device ms of its two
@@ -53,10 +54,31 @@ per phase:
                      a proof outside the subgroup and mismatched lengths are
                      rejected with the JAX package's error classes; the
                      empty batch passes;
+  5c. mesh           parallel/mesh.py: a world of 2 gloo ranks (spawned,
+                     sharing cuda:0, exchanging through host memory, each
+                     with a hard time limit): DASContext on a work = 2 mesh
+                     proves phase 3's 8 blobs and recovers them from 64 of
+                     128 cells, one on a dp = 2 mesh proves them, all
+                     byte-equal to phases 3 and 4 (digests sent back to
+                     this process); fft_sharded at [8, 8, 8192] equals
+                     Domain.fft and lincomb_sharded of 1,024 setup points
+                     msm.lincomb; each rank holds half of the FK20 tables
+                     and its work-sharded prove is 2 g1_fft launches and
+                     one fixed_base_msm call; the proves timed (median of
+                     3), and an all_gather of the slot results. Then a
+                     world of 1 NCCL rank: a (1, 1) mesh proves the 8 blobs
+                     byte-equal, its collectives on CUDA tensors with no
+                     host copy;
+  5d. g2             curve_g2.g2_lincomb over the setup's 65 G2 points with
+                     seeded scalars against a host oracle (bls_host), with
+                     mont_mul launches and no G1 kernel; add and double on
+                     the card against their CPU route;
   6. launches        the kernel launch counts of one call of each path
                      (prove B=8, recover B=8, verify 1,024 cells,
                      compute_blob_kzg_proof of one blob,
-                     verify_blob_kzg_proof_batch of 8 blobs), each reset
+                     verify_blob_kzg_proof_batch of 8 blobs, rank 0's
+                     work-sharded prove B=8 of phase 5c, g2_lincomb of 65
+                     points), each reset
                      just before its call and read just after: every kernel
                      a path runs must have launched on it, the prover's two
                      G1 transforms as 2 g1_fft launches and its fixed-base
@@ -74,7 +96,8 @@ per phase:
                      fixed_base_msm call, at most 2 ntt launches and no G1
                      transform or per-operation group kernel, its batch
                      verifier as 1 g1_decompress launch and the g1_add /
-                     g1_double GLV ladders, no g1_fft;
+                     g1_double GLV ladders, no g1_fft; the mesh prove as
+                     the prover's; g2_lincomb as mont_mul launches alone;
   6b. table_free     DASContext(use_precomp=None): no fixed-base table; a
                      prove B=1, a commitment and a recover B=1 through
                      Pippenger, byte-equal to the table route, with its
@@ -97,7 +120,10 @@ per phase:
                      of 8 blobs: median of 5 after a warm-up, device busy
                      time, host share and launches per call; stage splits
                      of a prove, a verify, a recover and the 8-blob
-                     verify_blob_kzg_proof_batch.
+                     verify_blob_kzg_proof_batch; g2_lincomb of 65 points
+                     (median of 3) and phase 5c's two mesh proves (median
+                     of 3 in each rank; no scaling figure: both ranks share
+                     one card).
 Then the per-kernel summary line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check exits nonzero.
 Needs one CUDA card; imports nothing of JAX.
@@ -899,6 +925,264 @@ def phase_eip4844(torch, K, ctx, blobs, out, comms):
     return proofs, prove_launches, verify_launches
 
 
+# Each mesh world's hard limit: a rank still alive then is terminated and
+# the phase fails; a collective waits at most its group's timeout.
+MESH_WORLD_TIMEOUT_S = 150
+MESH_COLLECTIVE_TIMEOUT_S = 120
+MESH_NOTE = ("two gloo ranks share one card and exchange through host memory: a check of the sharded "
+             "programs at mainnet shapes, no scaling figure")
+
+
+def _digest(results):
+    """sha256 of the cells and proofs of a prover call's result, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for cells, proofs in results:
+        for part in (*cells, *proofs):
+            h.update(part)
+    return h.hexdigest()
+
+
+def _host_ms(torch, fn, reps=3):
+    """Median host-clock ms of `reps` calls after a warm-up, each closed by a
+    synchronize, and the runs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(runs), runs
+
+
+def _mesh_rank(backend, rank, world, tmp, program, args):
+    """A spawned rank: its process group over a FileStore in `tmp`, then
+    program(*args) on cuda:0; the result is pickled to tmp/rank<r>.pkl."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    if backend == "nccl":
+        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        result = program(*args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _run_world(backend, world, program, *args):
+    """`world` ranks of program(*args) (spawn start method), each with the
+    world's hard limit; their results in rank order. A rank that fails or
+    outlives the limit fails the phase."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, args=(backend, r, world, tmp, program, args)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_WORLD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.terminate()
+            for p in hung:
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(not hung, f"mesh {backend} world {world}: {len(hung)} ranks still running after {MESH_WORLD_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        check(not any(codes), f"mesh {backend} world {world}: ranks exited with {codes}")
+        results = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as fh:
+                results.append(pickle.load(fh))
+        return results
+
+
+def _mesh_gloo_program(blobs, batches):
+    """World 2, gloo, both ranks on cuda:0: DASContext on a (1, 2) mesh
+    (work = 2) proves the blobs (launches counted) and recovers the batches;
+    one on a (2, 1) mesh (dp = 2) proves them; each prove timed (median of
+    3); fft_sharded at [8, 8, 8192] against Domain.fft and lincomb_sharded
+    over 1,024 setup points against msm.lincomb; an all_gather of the
+    slot results' shape timed. Returns digests, flags, counts and times."""
+    import torch
+
+    from rust_eth_kzg_tpu_torch import api
+    from rust_eth_kzg_tpu_torch.ops import curve as C
+    from rust_eth_kzg_tpu_torch.ops import field as F
+    from rust_eth_kzg_tpu_torch.ops import kernels as K
+    from rust_eth_kzg_tpu_torch.ops import msm as M
+    from rust_eth_kzg_tpu_torch.ops import ntt
+    from rust_eth_kzg_tpu_torch.parallel import mesh as PM
+    from rust_eth_kzg_tpu_torch.utils.trusted_setup import TrustedSetup
+
+    out = {}
+    setup = TrustedSetup.default()
+    work_mesh = PM.make_mesh(2, dp=1)
+    t = time.perf_counter()
+    ctx = api.DASContext(device=torch.device("cuda", 0), trusted_setup=setup, mesh=work_mesh)
+    device = ctx.device
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["fk20_table_bytes"] = ctx.prover.tables.nbytes
+    out["slots"] = [ctx.prover.slots.start, ctx.prover.slots.stop]
+    K.reset_launches()
+    PM.reset_collectives()
+    proved = ctx.compute_cells_and_kzg_proofs_batch(blobs)
+    torch.cuda.synchronize()
+    out["launches"] = dict(K.LAUNCHES)
+    out["collectives"] = dict(PM.COLLECTIVES)
+    out["prove_work2"] = _digest(proved)
+    out["recover_work2"] = _digest(ctx.recover_cells_and_kzg_proofs_batch(batches))
+    out["prove_work2_ms"], out["prove_work2_runs_ms"] = _host_ms(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blobs))
+    # the slot results of a prove B=8 over work: G1 [8, 64] a rank, stacked
+    part = torch.zeros((3, 12, len(blobs), ctx.prover.slots.stop - ctx.prover.slots.start), dtype=torch.int32,
+                       device=device)
+    out["slot_gather_ms"], _ = _host_ms(torch, lambda: PM.all_gather(work_mesh, "work", part, 3), reps=20)
+    data = ctx._data(blobs)  # [8, 8, 4096]
+    x = torch.cat((data, data.flip(-1)), dim=-1).contiguous()  # [8, 8, 8192]
+    del ctx
+    dp_ctx = api.DASContext(device=device, trusted_setup=setup, mesh=PM.make_mesh(2, dp=2))
+    K.reset_launches()
+    out["prove_dp2"] = _digest(dp_ctx.compute_cells_and_kzg_proofs_batch(blobs))
+    torch.cuda.synchronize()
+    out["launches_dp2"] = dict(K.LAUNCHES)
+    out["prove_dp2_ms"], out["prove_dp2_runs_ms"] = _host_ms(torch, lambda: dp_ctx.compute_cells_and_kzg_proofs_batch(blobs))
+    del dp_ctx
+    dom = ntt.Domain(x.shape[-1], device)
+    out["fft_equal"] = bool(torch.equal(PM.fft_sharded(dom, x, work_mesh), dom.fft(x)))
+    pts = C.points_to_device(setup.g1_monomial[:1024], device)
+    _, s = _random_field(F.FR, pts.x.shape[-1], SEED + 601, device)
+    got, want = PM.lincomb_sharded(pts, s, work_mesh), M.lincomb(pts, s)
+    out["lincomb_equal"] = bool(C.equal(got, want).item()) and not bool(C.is_identity(want).item())
+    return out
+
+
+def _mesh_nccl_program(blobs):
+    """World 1, NCCL: DASContext on a (1, 1) mesh proves the blobs; its
+    collectives take the CUDA tensors as they are (no host copy)."""
+    import torch
+
+    from rust_eth_kzg_tpu_torch import api
+    from rust_eth_kzg_tpu_torch.parallel import mesh as PM
+
+    mesh = PM.make_mesh(1, dp=1)
+    ctx = api.DASContext(device=torch.device("cuda", 0), mesh=mesh)
+    PM.reset_collectives()
+    proved = ctx.compute_cells_and_kzg_proofs_batch(blobs)
+    torch.cuda.synchronize()
+    return {"device_type": mesh.device_type, "prove": _digest(proved), "collectives": dict(PM.COLLECTIVES)}
+
+
+def phase_mesh(torch, K, ctx, blobs, out):
+    """parallel/mesh.py on the card, against phases 3 and 4: a world of 2
+    gloo ranks sharing cuda:0 (work = 2: prove and recover B=8; dp = 2:
+    prove B=8; fft_sharded; lincomb_sharded; launch counts), then a world of
+    1 NCCL rank (prove B=8). Returns rank 0's launches of the work-sharded
+    prove, and its timings."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    want = _digest(out)
+    rng = np.random.default_rng(SEED + 500)
+    batches = []
+    for cells, _ in out:
+        idx = _kept(rng, 64)
+        batches.append((idx, [cells[i] for i in idx]))
+    gloo = _run_world("gloo", 2, _mesh_gloo_program, blobs, batches)
+    fk20_bytes = ctx.prover.tables.nbytes
+    msm_call = K.LAUNCHES_PER_CALL["fixed_base_msm"]
+    for r, res in enumerate(gloo):
+        n = res["launches"]
+        check(res["prove_work2"] == want, f"mesh rank {r}: work = 2 prove B=8 is phase 3's bytes")
+        check(res["recover_work2"] == want, f"mesh rank {r}: work = 2 recover B=8 is phase 4's bytes")
+        check(res["prove_dp2"] == want, f"mesh rank {r}: dp = 2 prove B=8 is phase 3's bytes")
+        check(res["fft_equal"], f"mesh rank {r}: fft_sharded [8, 8, 8192] equals Domain.fft")
+        check(res["lincomb_equal"], f"mesh rank {r}: lincomb_sharded of 1,024 points equals msm.lincomb")
+        check(res["slots"] == [64 * r, 64 * (r + 1)] and 2 * res["fk20_table_bytes"] == fk20_bytes,
+              f"mesh rank {r}: slots {res['slots']} and half of the FK20 tables ({res['fk20_table_bytes']} B)")
+        check(n["g1_fft"] == 2 and n["fixed_base_msm"] == msm_call
+              and n["g1_add"] + n["g1_double"] + n["g1_add_affine"] == 0,
+              f"mesh rank {r}: 2 g1_fft launches, one fixed_base_msm call and no g1_add, g1_double or "
+              f"g1_add_affine launch a work-sharded prove: {n}")
+        check(res["collectives"]["all_gather"] > 0 and res["collectives"]["host_copies"] > 0,
+              f"mesh rank {r}: the gloo collectives ran through host copies: {res['collectives']}")
+    nccl = _run_world("nccl", 1, _mesh_nccl_program, blobs)[0]
+    check(nccl["prove"] == want, "mesh NCCL world 1: prove B=8 is phase 3's bytes")
+    check(nccl["device_type"] == "cuda" and nccl["collectives"]["all_gather"] > 0
+          and nccl["collectives"]["host_copies"] == 0,
+          f"mesh NCCL world 1: the collectives took CUDA tensors with no host copy: {nccl}")
+    timing = {k: [res[k] for res in gloo] for k in ("init_s", "prove_work2_ms", "prove_work2_runs_ms", "prove_dp2_ms",
+                                                      "prove_dp2_runs_ms", "slot_gather_ms", "launches_dp2")}
+    emit({"phase": "mesh", "gloo_world": 2, "nccl_world": 1, "checked": [
+        "prove_work2", "recover_work2", "prove_dp2", "fft_sharded_8x8x8192", "lincomb_sharded_1024", "nccl_prove"],
+        "launches_rank0": gloo[0]["launches"], "collectives_rank0": gloo[0]["collectives"],
+        "nccl_collectives": nccl["collectives"], "by_rank": timing, "note": MESH_NOTE,
+        "seconds": time.perf_counter() - t0})
+    return gloo[0]["launches"], timing
+
+
+def phase_g2(torch, K, device):
+    """curve_g2 on the card: g2_lincomb over the setup's 65 G2 points with
+    seeded scalars against a host oracle (bls_host g2_mul and g2_add), its
+    launches (mont_mul only); add and double of 8 lanes, identities among
+    them, against their CPU route. Returns the launches and the inputs."""
+    from rust_eth_kzg_tpu_torch.constants import R_SCALAR
+    from rust_eth_kzg_tpu_torch.ops import curve_g2 as G2
+    from rust_eth_kzg_tpu_torch.ops import field as F
+    from rust_eth_kzg_tpu_torch.utils import bls_host as B
+    from rust_eth_kzg_tpu_torch.utils.trusted_setup import TrustedSetup
+
+    t0 = time.perf_counter()
+    pts = list(TrustedSetup.default().g2_monomial)
+    check(len(pts) == 65, f"the mainnet setup has 65 G2 points, not {len(pts)}")
+    scal = _random_ints(R_SCALAR, 65, SEED + 800)
+    sm = torch.from_numpy(F.FR.to_mont_host(scal)).to(device)
+    on_card = G2.points_to_device(pts, device)
+    K.reset_launches()
+    got = G2.g2_lincomb(on_card, sm)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check(launches["mont_mul"] > 0 and all(v == 0 for k, v in launches.items() if k != "mont_mul"),
+          f"g2_lincomb launches mont_mul and no other kernel: {launches}")
+    t1 = time.perf_counter()
+    want = None
+    for p, k in zip(pts, scal):
+        want = B.g2_add(want, B.g2_mul(p, k))
+    oracle_s = time.perf_counter() - t1
+    check(G2.points_from_device(got) == [want], "g2_lincomb of 65 points equals the host oracle")
+    lanes = pts[:6] + [None, pts[7]]
+    others = pts[8:14] + [pts[20], None]
+    for name, card, cpu in (
+        ("add", lambda: G2.add(G2.points_to_device(lanes, device), G2.points_to_device(others, device)),
+         lambda: G2.add(G2.points_to_device(lanes, "cpu"), G2.points_to_device(others, "cpu"))),
+        ("double", lambda: G2.double(G2.points_to_device(lanes, device)),
+         lambda: G2.double(G2.points_to_device(lanes, "cpu"))),
+    ):
+        check(G2.points_from_device(card()) == G2.points_from_device(cpu()), f"G2 {name} on the card equals its CPU route")
+    emit({"phase": "g2", "points": 65, "launches": launches, "host_oracle_s": oracle_s,
+          "checked": ["g2_lincomb_65", "add_8", "double_8"], "seconds": time.perf_counter() - t0})
+    return launches, (on_card, sm)
+
+
 def phase_table_free(torch, api, K, ctx, blobs, out):
     """DASContext(use_precomp=None) at mainnet geometry: no fixed-base table
     (the prover's MSMs run msm.lincomb, Pippenger on g1_add / g1_double);
@@ -1194,6 +1478,13 @@ def phase_fixed_base_msm(torch, K, C, ctx, results, device):
         horner_ms[record] = work["horner_rounds"] * latency_ms
     s2 = torch.from_numpy(msm_scalars((2, 128, 64), SEED + 69)).to(device)
     compare("fixed_base_msm", kernel_of(fk, s2), lambda: tuple(M.fixed_base_msm_plain(fk, s2)), 0, 0, main=False)
+    # the last rank's slot slice over a mesh's work dim: [2, 64, 64] at work =
+    # 2 and [2, 32, 64] at work = 4 (the sharded prover's shapes)
+    for work in (2, 4):
+        part = M.slice_instances(fk, slice(128 - 128 // work, 128))
+        sp = torch.from_numpy(msm_scalars((2, 128 // work, 64), SEED + 72 + work)).to(device)
+        compare("fixed_base_msm", kernel_of(part, sp), lambda: tuple(M.fixed_base_msm_plain(part, sp)), 0, 0,
+                main=False)
     # the verifier's 64-point commitment table, two of its base points the identity
     pts = list(ctx.verifier.g1s[:64])
     pts[5] = pts[40] = None
@@ -1215,7 +1506,8 @@ def phase_fixed_base_msm(torch, K, C, ctx, results, device):
     emit({"phase": "kernels_fixed_base_msm", "seconds": time.perf_counter() - t0, "checked": [
         {"name": k, "ok": results[k]["ok"], "kernel_ms": results[k]["kernel_ms"], "plain_ms": results[k]["plain_ms"],
          "launch_ms": results[k]["launch_ms"], "horner_critical_path_probe_ms": horner_ms[k]} for k in ("fixed_base_msm", "fixed_base_msm_wide")
-    ] + [{"name": "fixed_base_msm", "shape": shape, "ok": True} for shape in ("fk20_b2_edges", "commit_64", "commit_key_4096")]})
+    ] + [{"name": "fixed_base_msm", "shape": shape, "ok": True} for shape in (
+        "fk20_b2_edges", "fk20_work2_b2", "fk20_work4_b2", "commit_64", "commit_key_4096")]})
 
 
 KERNEL_FUNCTIONS = {
@@ -1276,10 +1568,30 @@ def measure_call(torch, K, fn, reps=5):
     }
 
 
-def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs):
+def measure_host_call(torch, K, fn, reps=3):
+    """One call timed without the profiler: a warm-up, then `reps` runs by
+    the host clock, each closed by a synchronize; the launches per call
+    are those of the timed runs over `reps`. For g2_lincomb, whose ~4e5
+    small torch ops made torch.profiler's trace of one call take minutes:
+    its device busy time is not measured."""
+    fn()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    runs = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t) * 1e3)
+    return {"median_ms": statistics.median(runs), "runs_ms": runs, "device_busy_ms": None,
+            "launches": {k: v // reps for k, v in K.LAUNCHES.items()}}
+
+
+def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs, g2_inputs, mesh_launches, mesh_timing):
     import numpy as np
 
     from rust_eth_kzg_tpu_torch.constants import R_SCALAR
+    from rust_eth_kzg_tpu_torch.ops import curve_g2 as G2
 
     t0 = time.perf_counter()
     calls = {}
@@ -1322,6 +1634,12 @@ def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs):
         torch, K, lambda: ctx.verify_blob_kzg_proof_batch(blobs, comms, blob_proofs))
     check(calls["verify_blob_kzg_proof_batch_8"]["launches"]["g1_decompress"] == 1,
           "verify_blob_kzg_proof_batch: 1 g1_decompress launch a call")
+    calls["g2_lincomb_65"] = measure_host_call(torch, K, lambda: G2.g2_lincomb(*g2_inputs))
+    # the mesh proves, timed inside the ranks of phase mesh (host clock, median of 3)
+    for name, key, launches in (("mesh_prove_B8_work2", "prove_work2", mesh_launches),
+                                ("mesh_prove_B8_dp2", "prove_dp2", mesh_timing["launches_dp2"][0])):
+        calls[name] = {"median_ms": mesh_timing[f"{key}_ms"][0], "runs_ms": mesh_timing[f"{key}_runs_ms"][0],
+                       "by_rank_median_ms": mesh_timing[f"{key}_ms"], "launches": launches, "note": MESH_NOTE}
     emit({"phase": "timing", "card": card, "calls": calls,
           "stages_ms": _stage_times(torch, ctx, _random_blob(SEED + 7)),
           "verify_stages_ms": {
@@ -1447,12 +1765,17 @@ def main() -> int:
         recover_launches = phase_recover(torch, K, ctx, out)
         verify_launches, comms = phase_verify(torch, K, ctx, blobs, out)
         blob_proofs, prove_4844_launches, verify_4844_launches = phase_eip4844(torch, K, ctx, blobs, out, comms)
+        mesh_launches, mesh_timing = phase_mesh(torch, K, ctx, blobs, out)
+        g2_launches, g2_inputs = phase_g2(torch, K, device)
         paths = {
             "prove": ("compute_cells_and_kzg_proofs_batch, 8 blobs", prove_launches),
             "recover": ("recover_cells_and_kzg_proofs_batch, 8 blobs, 64 of 128 cells each", recover_launches),
             "verify": ("verify_cell_kzg_proof_batch, 1,024 cells of 8 blobs", verify_launches),
             "prove_4844": ("compute_blob_kzg_proof, 1 blob", prove_4844_launches),
             "verify_4844": ("verify_blob_kzg_proof_batch, 8 blobs", verify_4844_launches),
+            "mesh_prove": ("compute_cells_and_kzg_proofs_batch on a work = 2 mesh, 8 blobs: rank 0 of 2",
+                           mesh_launches),
+            "g2_lincomb": ("curve_g2.g2_lincomb, the setup's 65 G2 points", g2_launches),
         }
         emit({"phase": "launches", "paths": {k: {"call": c, "launches": n} for k, (c, n) in paths.items()}})
         # every kernel each path runs launched on it; g1_decompress runs only
@@ -1474,6 +1797,10 @@ def main() -> int:
             "verify": set(K.KERNELS) - fused_away - {"g1_fft"},
             "prove_4844": {"g1_decompress", "mont_mul", "ntt", "fixed_base_msm", "batch_inverse"},
             "verify_4844": {"g1_decompress", "mont_mul", "ntt", "g1_add", "g1_double", "batch_inverse"},
+            # a rank of the work-sharded prover runs what the prover runs, over its slots
+            "mesh_prove": set(K.KERNELS) - fused_away - {"g1_decompress", "g1_add", "g1_double"},
+            # every Fp2 product a mont_mul launch; no G1 kernel
+            "g2_lincomb": {"mont_mul"},
         }
         for path, (_, counts) in paths.items():
             missing = sorted(k for k in expected[path] if counts[k] <= 0)
@@ -1482,7 +1809,7 @@ def main() -> int:
         # fixed_base_msm call, not ladders, trees and Horner loops composed
         # from the per-operation kernels
         msm_call = K.LAUNCHES_PER_CALL["fixed_base_msm"]
-        for path in ("prove", "recover"):
+        for path in ("prove", "recover", "mesh_prove"):
             counts = paths[path][1]
             check(counts["g1_fft"] == 2, f"{path}: 2 g1_fft launches expected: {counts}")
             check(counts["fixed_base_msm"] == msm_call,
@@ -1519,6 +1846,9 @@ def main() -> int:
         check(counts["g1_decompress"] == 1 and counts["g1_add"] > 0 and counts["g1_double"] > 0
               and counts["g1_fft"] == 0,
               f"verify_4844: 1 g1_decompress launch, g1_add and g1_double launches, no g1_fft expected: {counts}")
+        counts = paths["g2_lincomb"][1]
+        check(all(n == 0 for k, n in counts.items() if k != "mont_mul"),
+              f"g2_lincomb: mont_mul launches only, no G1 kernel expected: {counts}")
         # every kernel launched on some path, or its work runs inside a
         # launched kernel whose `replaces` names its TPU kernel
         launched = {k for k in K.KERNELS if any(n[k] > 0 for _, n in paths.values())}
@@ -1528,7 +1858,8 @@ def main() -> int:
         phase_table_free(torch, api, K, ctx, blobs, out)
         phase_persist(torch, api, K, ctx, blobs, out, init_s)
         phase_mainnet_oracle(torch, api, C, device)
-        calls = phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs)
+        calls = phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs, g2_inputs, mesh_launches,
+                             mesh_timing)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -4,7 +4,9 @@
 recovers cells and proofs from half of the cells, and verifies batches of
 cell proofs; `Context4844` (also `DASContext.eip4844`) computes and
 verifies single-point KZG proofs of blobs. A context can start from a
-snapshot of its tables (`table_cache`). The field and curve kernels are hand-written CUDA for sm_90a
+snapshot of its tables (`table_cache`), and its prover can be sharded over
+a torch.distributed device mesh (`mesh`, `parallel/mesh.py`); G2
+arithmetic is `ops/curve_g2.py`. The field and curve kernels are hand-written CUDA for sm_90a
 (`csrc/`, loaded by `ops/kernels.py`), with plain torch versions that run
 on the CPU; the closing pairing check runs in a native host library
 (`csrc/host/`, loaded by `utils/native.py`).

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import constants as CONST
-from .errors import RecoveryError, SerializationError, VerifierError
+from .errors import ProverError, RecoveryError, SerializationError, VerifierError
 from .models import cosets
 from .models.fk20 import FK20Config, FK20Prover, recover_and_prove
 from .models.fk20_verifier import FK20Verifier
@@ -32,6 +32,7 @@ from .models.reed_solomon import ReedSolomon
 from .ops import curve as C
 from .ops import field as F
 from .ops import poly as POLY
+from .parallel import mesh as PM
 from .utils import bls_host as bls
 from .utils import fiat_shamir as fs
 from .utils import persist
@@ -254,6 +255,15 @@ class DASContext(_BlobContext):
     `table_cache` (default: the KZG_TPU_TABLE_CACHE variable) is the path
     of a table snapshot: a matching one replaces the table build, else the
     built tables are saved there.
+
+    `mesh` (a ("dp", "work") mesh from `parallel.mesh.make_mesh`; every rank
+    of it builds the context and makes the same calls) shards the prover:
+    the rank holds and builds only its 2k / work proof slots' tables (a
+    snapshot is read whole and cut; none is written), the prover calls split
+    their blobs over `dp` and the slots over `work` and return the whole
+    batch on every rank; a recovery re-proves every blob with the slots over
+    `work`. The verifier and the EIP-4844 calls run on every rank as they
+    are.
     """
 
     def __init__(
@@ -263,6 +273,7 @@ class DASContext(_BlobContext):
         use_precomp: int | None = _DefaultWidth(CONST.RECOMMENDED_PRECOMP_WIDTH),
         config: FK20Config | None = None,
         table_cache: str | None = None,
+        mesh=None,
     ):
         if config is not None and not isinstance(use_precomp, _DefaultWidth):
             raise ValueError("pass either use_precomp or config, not both")
@@ -278,8 +289,13 @@ class DASContext(_BlobContext):
         )
         if table_cache is None:
             table_cache = os.environ.get("KZG_TPU_TABLE_CACHE") or None
-        self.prover = FK20Prover(setup.g1_monomial, self.config, self.device, table_cache=table_cache)
+        self.prover = FK20Prover(setup.g1_monomial, self.config, self.device, table_cache=table_cache, mesh=mesh)
         self._init_recovery_and_verifier(setup)
+
+    @property
+    def mesh(self):
+        """The mesh the prover is sharded over, or None."""
+        return self.prover.mesh
 
     @classmethod
     def from_prover(cls, prover: FK20Prover) -> "DASContext":
@@ -346,7 +362,18 @@ class DASContext(_BlobContext):
         """B blobs -> list of B (cells, proofs) tuples, proved in one batch."""
         if not blobs:
             raise SerializationError("batch contains no blobs")
-        proofs_aff, cells = self.prover.prove_from_data(self._data(blobs))
+        data = self._data(blobs)
+        mesh = self.mesh
+        if mesh is None:
+            proofs_aff, cells = self.prover.prove_from_data(data)
+        else:
+            dp = PM.dim_size(mesh, "dp")
+            if len(blobs) % dp:
+                raise ProverError(
+                    f"blob batch of {len(blobs)} does not divide the mesh's dp axis ({dp}); "
+                    "pad the batch or reshape the mesh"
+                )
+            proofs_aff, cells = PM.prove_work_sharded(self.prover, mesh, data)
         return self._cells_and_proofs(proofs_aff, cells)
 
     def _cells_and_proofs(self, proofs_aff: C.G1Affine, cells: torch.Tensor):

@@ -22,6 +22,7 @@ from ..ops import curve as C
 from ..ops import field as F
 from ..ops import msm as M
 from ..ops import ntt
+from ..parallel import mesh as PM
 from ..utils import persist
 
 FR = F.FR
@@ -89,15 +90,33 @@ class FK20Prover:
     None. With `table_cache` (a path; both windows set) the tables come from
     that snapshot when it matches (`utils/persist.py`: no SRS G1-FFT, no
     table build), else they are built and saved there.
+
+    With `mesh` (`parallel.mesh.make_mesh`) the prover is sharded over the
+    mesh's `work` dim: the rank keeps only its 2k / work proof slots,
+    `slots` (their tables, or their points without tables), builds only
+    those, runs their MSMs and gathers the slot results over `work` before
+    the G1-IFFT; every rank of a `work` group must prove the same blobs.
+    Whole tables passed in or loaded from a snapshot are cut to the slice
+    (the rest is freed); such a prover saves no snapshot. The commit key's
+    tables stay whole.
     """
 
-    def __init__(self, commit_key_points: list, config: FK20Config, device, tables=None, table_cache=None):
+    def __init__(self, commit_key_points: list, config: FK20Config, device, tables=None, table_cache=None,
+                 mesh=None):
         cfg = config
         if cfg.poly_len % cfg.coset_size:
             raise ValueError("poly_len must be a multiple of coset_size")
         self.config = cfg
         self.device = torch.device(device)
         k = cfg.poly_len // cfg.coset_size
+        self.mesh = mesh
+        self.slots = slice(0, 2 * k)
+        if mesh is not None:
+            work = PM.dim_size(mesh, "work")
+            if (2 * k) % work:
+                raise ValueError(f"{2 * k} proof slots do not split over work = {work}")
+            w = PM.dim_rank(mesh, "work")
+            self.slots = slice(w * 2 * k // work, (w + 1) * 2 * k // work)
         self.circulant_domain = ntt.Domain(2 * k, device)
         self.proof_domain = ntt.Domain(cfg.num_proofs, device)
         self.evaluation_domain = ntt.Domain(cfg.ext_size, device)
@@ -112,7 +131,7 @@ class FK20Prover:
             tables = persist.try_load_tables(cache, self.srs_fingerprint, cfg.fk20_window, cfg.commit_window,
                                              persist.config_geometry(cfg), self.device)
         if tables is not None:
-            self.tables, self.commit_tables = tables
+            self.set_tables(*tables)
             return
 
         srs = commit_key_points
@@ -125,7 +144,7 @@ class FK20Prover:
         dev = C.points_to_device([pt for vec in vectors for pt in vec], device)
         dev = C._map(lambda c: c.reshape(-1, cfg.coset_size, 2 * k), dev)
         slot_points = self.circulant_domain.fft_g1(dev)  # [coset, 2k]
-        slot_points = C._map(lambda c: c.transpose(1, 2).contiguous(), slot_points)
+        slot_points = C._map(lambda c: c.transpose(1, 2)[:, self.slots].contiguous(), slot_points)
         self.tables = None
         if cfg.fk20_window is None:
             self.slot_points = slot_points
@@ -137,8 +156,14 @@ class FK20Prover:
             self.commit_points = commit_pts
         else:
             self.commit_tables = M.build_fixed_base_msm(commit_pts, cfg.commit_window)
-        if cache:
+        if cache and mesh is None:
             persist.save_prover_tables(self, cache)
+
+    def set_tables(self, fk20: M.FixedBaseMSM, commit: M.FixedBaseMSM) -> None:
+        """Take whole tables (all 2k slots); a sharded prover keeps its slice."""
+        if self.mesh is not None:
+            fk20 = M.slice_instances(fk20, self.slots)
+        self.tables, self.commit_tables = fk20, commit
 
     # --- pipeline pieces (all shapes [L, B, ...]) ---
 
@@ -154,15 +179,18 @@ class FK20Prover:
         rows = rows.reshape(poly.shape[:-1] + (cfg.coset_size, 2 * k))
         rows = torch.where(self._circ_mask, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
         col_fft = self.circulant_domain.fft(rows)
-        # per-slot scalars [L, B, 2k, coset], with the circulant IFFT's 1/(2k)
-        # folded in (one Fr product instead of a G1 scalar multiplication)
+        # the prover's slots' scalars [L, B, slots, coset], with the circulant
+        # IFFT's 1/(2k) folded in (one Fr product instead of a G1 scalar
+        # multiplication)
         msm_scalars = F.mont_mul_const(
-            FR, col_fft.transpose(-1, -2), self.circulant_domain.size_inv
+            FR, col_fft.transpose(-1, -2)[..., self.slots, :], self.circulant_domain.size_inv
         )
         if self.tables is not None:
-            slot_results = M.fixed_base_msm(self.tables, msm_scalars)  # [B, 2k]
+            slot_results = M.fixed_base_msm(self.tables, msm_scalars)  # [B, slots]
         else:
             slot_results = M.lincomb(_broadcast(self.slot_points, msm_scalars), msm_scalars)
+        if self.mesh is not None:
+            slot_results = PM.all_gather_g1(self.mesh, "work", slot_results, 1)  # [B, 2k]
         return self.circulant_domain.ifft_g1(slot_results, take_n=k, prescaled=True)
 
     def _proofs_from_h(self, h_comms: C.G1) -> C.G1:

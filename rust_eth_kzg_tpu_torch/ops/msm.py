@@ -24,18 +24,27 @@ the CUDA kernels through `ops/curve.py`.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
-from ..constants import R_SCALAR, SCALAR_BITS
+from ..constants import LIMB_BITS, R_SCALAR, SCALAR_BITS
 from . import curve as C
 from . import field as F
 from . import kernels as K
 
 FR = F.FR
 FP = F.FP
+
+
+def scalar_bits_msb(scalars_mont: torch.Tensor, nbits: int | None = None) -> torch.Tensor:
+    """Montgomery Fr scalars [L, *batch] -> MSB-first bits [nbits, *batch] bool."""
+    if nbits is None:
+        nbits = min(SCALAR_BITS - 1, FR.modulus.bit_length())
+    std = F.from_mont(FR, scalars_mont)
+    rows = [(std[t // LIMB_BITS] >> (t % LIMB_BITS)) & 1 for t in range(nbits - 1, -1, -1)]
+    return torch.stack(rows).to(torch.bool)
 
 
 def signed_digits(scalars_mont: torch.Tensor, window: int, plain: bool = False) -> torch.Tensor:
@@ -90,6 +99,15 @@ class FixedBaseMSM:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.table_x, self.table_y, self.base_inf))
+
+
+def slice_instances(tables: FixedBaseMSM, sl: slice) -> FixedBaseMSM:
+    """The tables of instances `sl` of the first instance axis, as copies
+    (the whole tables can then be freed)."""
+    if tables.instance_ndim < 1:
+        raise ValueError("these tables have no instance axis")
+    return replace(tables, table_x=tables.table_x[:, sl].clone(), table_y=tables.table_y[:, sl].clone(),
+                   base_inf=tables.base_inf[sl].clone())
 
 
 def _assert_no_chord_collision(window: int, wpc: int, chains: int) -> None:

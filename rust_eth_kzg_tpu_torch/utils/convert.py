@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops import curve as C
+from ..ops import curve_g2 as G2
 from ..ops import field as F
 from ..ops import msm as M
 
@@ -44,6 +45,11 @@ def limbs15_to_port(arr, spec: F.FieldSpec, device) -> torch.Tensor:
 def g1_from_jax(x, y, z, device) -> C.G1:
     """JAX projective G1 coordinates [26, *batch] -> port G1."""
     return C.G1(*(limbs15_to_port(c, F.FP, device) for c in (x, y, z)))
+
+
+def g2_from_jax(point, device) -> G2.G2:
+    """A JAX `curve_g2.G2` (Fp2 components of [26, *batch] limbs) -> port G2."""
+    return G2.G2(*(G2.Fp2(*(limbs15_to_port(c, F.FP, device) for c in f)) for f in point))
 
 
 def fixed_base_tables_from_jax(

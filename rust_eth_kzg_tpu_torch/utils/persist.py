@@ -129,13 +129,16 @@ def config_geometry(config) -> tuple[int, int, int]:
 def save_prover_tables(prover, path: str) -> None:
     if prover.tables is None or prover.commit_tables is None:
         raise ValueError("this prover has no fixed-base tables to save (a window of None)")
+    if prover.mesh is not None:
+        raise ValueError("this prover holds only its slice of the FK20 tables (a mesh): it cannot save them")
     save_tables_file(path, prover.srs_fingerprint, prover.tables, prover.commit_tables, config_geometry(prover.config))
 
 
 def load_prover_tables(prover, path: str) -> bool:
-    """Replace the prover's tables by the snapshot's; False (the prover
-    unchanged) if it is missing or made for another SRS, geometry, window
-    or layout, or if the prover runs without tables."""
+    """Replace the prover's tables by the snapshot's (a sharded prover keeps
+    its slice); False (the prover unchanged) if it is missing or made for
+    another SRS, geometry, window or layout, or if the prover runs without
+    tables."""
     cfg = prover.config
     if cfg.fk20_window is None or cfg.commit_window is None:
         return False
@@ -143,5 +146,5 @@ def load_prover_tables(prover, path: str) -> bool:
                              prover.device)
     if loaded is None:
         return False
-    prover.tables, prover.commit_tables = loaded
+    prover.set_tables(*loaded)
     return True

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from rust_eth_kzg_tpu_torch.ops import curve as C
+from rust_eth_kzg_tpu_torch.ops import curve_g2 as G2
 from rust_eth_kzg_tpu_torch.ops import decompress as D
 from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import kernels as K
@@ -241,11 +242,13 @@ def test_lincomb_host_eip4844_batch(device):
     assert C.points_from_device(got) == sums
 
 
-@pytest.mark.parametrize("n_inst,n_pts,batch", [(128, 64, 1), (128, 64, 2), (0, 64, 1), (0, 2048, 2)],
-                         ids=["fk20_b1", "fk20_b2", "commit_64", "commit_2048_b2"])
+@pytest.mark.parametrize("n_inst,n_pts,batch", [(128, 64, 1), (128, 64, 2), (64, 64, 2), (32, 64, 2), (0, 64, 1),
+                                                 (0, 2048, 2)],
+                         ids=["fk20_b1", "fk20_b2", "fk20_work2_b2", "fk20_work4_b2", "commit_64", "commit_2048_b2"])
 def test_fixed_base_msm_kernel(device, n_inst, n_pts, batch):
     """The fused fixed-base MSM against fixed_base_msm_plain limb for limb, on
     window-8, 4-chain tables: the FK20 shape (128 instances of 64 points),
+    a rank's slot slice of it over a mesh's work dim (64 and 32 instances),
     the verifier's 64-point commitment table, and a commit key of 2,048
     points (8,192 lanes a window sum, split over 32 blocks). An identity
     base point in every table; zero scalars, r - 1, and an all-zero first
@@ -269,3 +272,25 @@ def test_fixed_base_msm_kernel(device, n_inst, n_pts, batch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     if batch > 1:
         assert bool(C.is_identity(C._map(lambda c: c[:, 0], C.G1(*got))).all())
+
+
+def test_g2_on_the_card(device):
+    """G2 add, double and g2_lincomb (N = 4, an identity point, a zero
+    scalar) on CUDA tensors against their CPU route: every Fp product is a
+    mont_mul launch, and no G1 kernel runs."""
+    rng = np.random.default_rng(50)
+    pts = [B.g2_mul(B.G2_GEN, int(v)) for v in rng.integers(1, 2**62, size=4)]
+    pts[1] = None
+    scal = [int(v) ** 5 % R_SCALAR for v in rng.integers(1, 2**62, size=4)]
+    scal[2] = 0
+    sm = torch.from_numpy(F.FR.to_mont_host(scal))
+    on_card = G2.points_to_device(pts, device)
+    before = dict(K.LAUNCHES)
+    got = G2.g2_lincomb(on_card, sm.to(device))
+    assert {k for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]} == {"mont_mul"}
+    want = G2.g2_lincomb(G2.points_to_device(pts, "cpu"), sm)
+    assert G2.points_from_device(got) == G2.points_from_device(want)
+    q = G2.points_to_device(pts[::-1], device)
+    for g, w in ((G2.add(on_card, q), G2.add(G2.points_to_device(pts, "cpu"), G2.points_to_device(pts[::-1], "cpu"))),
+                 (G2.double(on_card), G2.double(G2.points_to_device(pts, "cpu")))):
+        assert G2.points_from_device(g) == G2.points_from_device(w)
