@@ -68,7 +68,10 @@ per phase:
                      3), and an all_gather of the slot results. Then a
                      world of 1 NCCL rank: a (1, 1) mesh proves the 8 blobs
                      byte-equal, its collectives on CUDA tensors with no
-                     host copy;
+                     host copy. The port's setup cache is removed before
+                     the gloo world: both ranks miss it and race to write
+                     it, and one whole cache file equal to a parse must
+                     remain;
   5d. g2             curve_g2.g2_lincomb over the setup's 65 G2 points with
                      seeded scalars against a host oracle (bls_host), with
                      mont_mul launches and no G1 kernel; add and double on
@@ -108,7 +111,11 @@ per phase:
                      kernel, its prove of the 8 blobs byte-equal to phase
                      3; seconds to save, file bytes, cold init against init
                      from the snapshot; a snapshot of another geometry or
-                     window refused (the latter rebuilt and saved);
+                     window refused (the latter rebuilt and saved); the
+                     trusted setup's cache (under a temporary directory):
+                     a miss (parse and write), the write alone and a hit,
+                     equal to the parse; both inits again with the setup
+                     cache warm;
   7. mainnet_oracle  an insecure mainnet-size setup with a seeded tau: cells,
                      four proofs and the commitment against host Python-int
                      oracles (models/naive.py), and compute_kzg_proof at two
@@ -123,7 +130,12 @@ per phase:
                      verify_blob_kzg_proof_batch; g2_lincomb of 65 points
                      (median of 3) and phase 5c's two mesh proves (median
                      of 3 in each rank; no scaling figure: both ranks share
-                     one card).
+                     one card); then utils/tracing.py: a prove B=8 inside
+                     device_trace holds the four prover spans in order,
+                     each with CUDA time under it, a prove B=8 with
+                     TRACE_ENABLED prints their four lines, both byte-equal
+                     to phase 3; prove B=1's host clock with the spans and
+                     with null spans, interleaved.
 Then the per-kernel summary line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check exits nonzero.
 Needs one CUDA card; imports nothing of JAX.
@@ -131,6 +143,7 @@ Needs one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -703,10 +716,22 @@ def _random_blob(seed, n=4096):
     return b"".join(v.to_bytes(32, "big") for v in _random_ints(R_SCALAR, n, seed))
 
 
+def _setup_cache():
+    """The port's trusted_setup module, the embedded setup's JSON text and
+    the path of its decompressed-point cache."""
+    from rust_eth_kzg_tpu_torch.utils import trusted_setup as TS
+
+    with open(TS.SETUP_JSON_PATH) as fh:
+        text = fh.read()
+    return TS, text, TS.cache_path(text)
+
+
 def phase_mainnet_setup(torch, api, K, device):
     """Init, then one call of the prove path whose launch counts are returned."""
     from rust_eth_kzg_tpu_torch.utils import bls_host as B
 
+    _, _, setup_cache = _setup_cache()
+    setup_cache_present = os.path.exists(setup_cache)
     t0 = time.perf_counter()
     ctx = api.DASContext(device=device)
     torch.cuda.synchronize()
@@ -731,7 +756,7 @@ def phase_mainnet_setup(torch, api, K, device):
     commitment = ctx.blob_to_kzg_commitment(blobs[0])
     check(commitment == B.g1_compress(None), "zero blob commits to the identity")
     emit({
-        "phase": "mainnet_setup", "init_s": init_s, "prove_b8_s": prove_s,
+        "phase": "mainnet_setup", "init_s": init_s, "setup_cache_present": setup_cache_present, "prove_b8_s": prove_s,
         "table_bytes": table_bytes,
         "fk20_table_bytes": ctx.prover.tables.nbytes,
         "commit_table_bytes": ctx.prover.commit_tables.nbytes,
@@ -1035,7 +1060,11 @@ def _mesh_gloo_program(blobs, batches):
     from rust_eth_kzg_tpu_torch.utils.trusted_setup import TrustedSetup
 
     out = {}
+    _, _, setup_cache = _setup_cache()
+    out["setup_cache_present"] = os.path.exists(setup_cache)
+    t = time.perf_counter()
     setup = TrustedSetup.default()
+    out["setup_s"] = time.perf_counter() - t
     work_mesh = PM.make_mesh(2, dp=1)
     t = time.perf_counter()
     ctx = api.DASContext(device=torch.device("cuda", 0), trusted_setup=setup, mesh=work_mesh)
@@ -1096,11 +1125,16 @@ def phase_mesh(torch, K, ctx, blobs, out):
     """parallel/mesh.py on the card, against phases 3 and 4: a world of 2
     gloo ranks sharing cuda:0 (work = 2: prove and recover B=8; dp = 2:
     prove B=8; fft_sharded; lincomb_sharded; launch counts), then a world of
-    1 NCCL rank (prove B=8). Returns rank 0's launches of the work-sharded
-    prove, and its timings."""
+    1 NCCL rank (prove B=8). The port's setup cache is removed first, so
+    both gloo ranks miss it and race to write it: one whole cache file must
+    remain, equal to a parse. Returns rank 0's launches of the
+    work-sharded prove, and its timings."""
     import numpy as np
 
     t0 = time.perf_counter()
+    TS, text, setup_cache = _setup_cache()
+    if os.path.exists(setup_cache):
+        os.remove(setup_cache)
     want = _digest(out)
     rng = np.random.default_rng(SEED + 500)
     batches = []
@@ -1108,6 +1142,12 @@ def phase_mesh(torch, K, ctx, blobs, out):
         idx = _kept(rng, 64)
         batches.append((idx, [cells[i] for i in idx]))
     gloo = _run_world("gloo", 2, _mesh_gloo_program, blobs, batches)
+    base = os.path.basename(setup_cache)
+    left = sorted(n for n in os.listdir(TS.CACHE_DIR) if n.startswith(base))
+    check(left == [base], f"mesh: two ranks that started with no setup cache leave one cache file: {left}")
+    check(not any(res["setup_cache_present"] for res in gloo), "mesh: both ranks started with no setup cache")
+    check(TS.load_cache(setup_cache) == TS.TrustedSetup.from_json_unchecked(text),
+          "mesh: the setup cache the ranks wrote equals a parse")
     fk20_bytes = ctx.prover.tables.nbytes
     msm_call = K.LAUNCHES_PER_CALL["fixed_base_msm"]
     for r, res in enumerate(gloo):
@@ -1130,10 +1170,11 @@ def phase_mesh(torch, K, ctx, blobs, out):
     check(nccl["device_type"] == "cuda" and nccl["collectives"]["all_gather"] > 0
           and nccl["collectives"]["host_copies"] == 0,
           f"mesh NCCL world 1: the collectives took CUDA tensors with no host copy: {nccl}")
-    timing = {k: [res[k] for res in gloo] for k in ("init_s", "prove_work2_ms", "prove_work2_runs_ms", "prove_dp2_ms",
+    timing = {k: [res[k] for res in gloo] for k in ("setup_s", "init_s", "prove_work2_ms", "prove_work2_runs_ms", "prove_dp2_ms",
                                                       "prove_dp2_runs_ms", "slot_gather_ms", "launches_dp2")}
     emit({"phase": "mesh", "gloo_world": 2, "nccl_world": 1, "checked": [
-        "prove_work2", "recover_work2", "prove_dp2", "fft_sharded_8x8x8192", "lincomb_sharded_1024", "nccl_prove"],
+        "prove_work2", "recover_work2", "prove_dp2", "fft_sharded_8x8x8192", "lincomb_sharded_1024", "nccl_prove",
+        "setup_cache_race"],
         "launches_rank0": gloo[0]["launches"], "collectives_rank0": gloo[0]["collectives"],
         "nccl_collectives": nccl["collectives"], "by_rank": timing, "note": MESH_NOTE,
         "seconds": time.perf_counter() - t0})
@@ -1221,34 +1262,64 @@ def phase_table_free(torch, api, K, ctx, blobs, out):
 TABLE_BUILD_KERNELS = ("g1_fft", "g1_add", "g1_double", "batch_inverse")
 
 
+@contextlib.contextmanager
+def _setup_cache_dir(TS, path):
+    """The port's setup cache kept in `path` for the block."""
+    saved, TS.CACHE_DIR = TS.CACHE_DIR, path
+    try:
+        yield
+    finally:
+        TS.CACHE_DIR = saved
+
+
 def phase_persist(torch, api, K, ctx, blobs, out, cold_init_s):
     """The table snapshot: save the mainnet context's tables under a
     temporary directory, start a new DASContext(table_cache=path) (its init
     must launch no g1_fft and none of the table build's kernels), prove the
     8 blobs byte-equal to phase 3; then a context of another window over the
     same snapshot refuses it, builds its own tables and saves them there.
-    Also the parts of an init: the embedded setup's parse, a prover's cold
-    build, and the snapshot's read and upload alone."""
+    Also the parts of an init: the embedded setup's parse (a miss of its
+    cache), the cache's write and load (a hit, equal to the parse), a
+    prover's cold build, and the snapshot's read and upload alone; then both
+    inits with the setup cache warm. The setup cache lives in temporary
+    directories here: "cold" stays empty for the first init from the
+    snapshot (a parse, as in cold_init_s), "warm" holds it."""
     import tempfile
 
     from rust_eth_kzg_tpu_torch.models.fk20 import FK20Prover
     from rust_eth_kzg_tpu_torch.utils import persist
-    from rust_eth_kzg_tpu_torch.utils.trusted_setup import TrustedSetup
 
+    TS, text, _ = _setup_cache()
     t0 = time.perf_counter()
-    # where an init's time goes: the embedded setup's parse (both inits),
-    # the tables' build (cold) or their read and upload (snapshot)
-    t1 = time.perf_counter()
-    setup = TrustedSetup.default()
-    parse_s = time.perf_counter() - t1
-    cfg = ctx.config
-    geometry = persist.config_geometry(cfg)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    FK20Prover(setup.g1_monomial, cfg, ctx.device)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t1
     with tempfile.TemporaryDirectory() as tmp:
+        warm_dir, cold_dir = os.path.join(tmp, "warm"), os.path.join(tmp, "cold")
+        os.mkdir(warm_dir)
+        os.mkdir(cold_dir)
+        # where an init's time goes: the embedded setup's parse (a miss) or
+        # its cache's load (a hit), the tables' build (cold) or their read
+        # and upload (snapshot)
+        with _setup_cache_dir(TS, warm_dir):
+            t1 = time.perf_counter()
+            setup = TS.TrustedSetup.default()
+            parse_s = time.perf_counter() - t1
+            check(os.listdir(warm_dir) == [os.path.basename(TS.cache_path(text))],
+                  "a setup cache miss writes one cache file")
+            t1 = time.perf_counter()
+            check(TS.save_cache(os.path.join(tmp, "setup_cache_write.npz"), setup), "the setup cache writes")
+            cache_write_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            hit = TS.TrustedSetup.default()
+            cache_load_s = time.perf_counter() - t1
+        check(hit.g1_monomial == setup.g1_monomial and hit.g2_monomial == setup.g2_monomial
+              and len(hit.g1_monomial) == 4096 and len(hit.g2_monomial) == 65,
+              "the setup cache's hit gives the parse's 4,096 G1 and 65 G2 points")
+        cfg = ctx.config
+        geometry = persist.config_geometry(cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        FK20Prover(setup.g1_monomial, cfg, ctx.device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
         path = os.path.join(tmp, "tables.snap")
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1262,8 +1333,9 @@ def phase_persist(torch, api, K, ctx, blobs, out, cold_init_s):
         read_s = time.perf_counter() - t1
         K.reset_launches()
         t2 = time.perf_counter()
-        warm = api.DASContext(device=ctx.device, table_cache=path)
-        torch.cuda.synchronize()
+        with _setup_cache_dir(TS, cold_dir):
+            warm = api.DASContext(device=ctx.device, table_cache=path)
+            torch.cuda.synchronize()
         load_init_s = time.perf_counter() - t2
         init_launches = {k: v for k, v in K.LAUNCHES.items() if v}
         check(all(K.LAUNCHES[k] == 0 for k in TABLE_BUILD_KERNELS),
@@ -1274,6 +1346,20 @@ def phase_persist(torch, api, K, ctx, blobs, out, cold_init_s):
         check(warm.compute_cells_and_kzg_proofs_batch(blobs) == out,
               "prove B=8 from the snapshot's tables: phase 3's bytes")
         del warm
+        # both inits with the setup cache warm
+        with _setup_cache_dir(TS, warm_dir):
+            t2 = time.perf_counter()
+            warm = api.DASContext(device=ctx.device, table_cache=path)
+            torch.cuda.synchronize()
+            load_init_warm_setup_s = time.perf_counter() - t2
+            del warm
+            t2 = time.perf_counter()
+            cold = api.DASContext(device=ctx.device)
+            torch.cuda.synchronize()
+            cold_init_warm_setup_s = time.perf_counter() - t2
+        check(cold.compute_cells_and_kzg_proofs_batch(blobs[:2]) == out[:2],
+              "prove B=2 of a context whose setup came from the cache: phase 3's bytes")
+        del cold
         check(persist.try_load_tables(path, ctx.prover.srs_fingerprint, cfg.fk20_window, cfg.commit_window,
                                       (cfg.poly_len, 2 * cfg.coset_size, cfg.expansion), ctx.device) is None,
               "a snapshot of another geometry is refused")
@@ -1290,8 +1376,9 @@ def phase_persist(torch, api, K, ctx, blobs, out, cold_init_s):
         del other
     emit({"phase": "persist", "save_s": save_s, "file_bytes": file_bytes, "cold_init_s": cold_init_s,
           "init_from_snapshot_s": load_init_s, "init_launches": init_launches, "rebuild_window6_s": rebuild_s,
-          "setup_parse_s": parse_s, "prover_build_s": build_s, "snapshot_read_upload_s": read_s,
-          "seconds": time.perf_counter() - t0})
+          "setup_parse_s": parse_s, "setup_cache_write_s": cache_write_s, "setup_cache_load_s": cache_load_s,
+          "cold_init_warm_setup_s": cold_init_warm_setup_s, "init_from_snapshot_warm_setup_s": load_init_warm_setup_s,
+          "prover_build_s": build_s, "snapshot_read_upload_s": read_s, "seconds": time.perf_counter() - t0})
 
 
 def phase_mainnet_oracle(torch, api, C, device):
@@ -1523,8 +1610,9 @@ KERNEL_FUNCTIONS = {
 def measure_call(torch, K, fn, reps=5):
     """One call timed: a warm-up, then `reps` runs by the host clock (each
     closed by a synchronize) and CUDA events; then one run under
-    torch.profiler for device busy time (self time of every device event)
-    and device ms by kernel; then one run for the launches per call."""
+    torch.profiler for device busy time (self time of every device event
+    that is no annotation) and device ms by kernel; then one run for the
+    launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1546,6 +1634,12 @@ def measure_call(torch, K, fn, reps=5):
     per_kernel = dict.fromkeys(K.KERNELS, 0.0)
     busy = 0.0
     for ev in prof.key_averages():
+        # device events only, as torch.profiler's own table sums them: a
+        # span (record_function) is a GPU annotation over its kernels and
+        # the CPU parent of the kernels launched through ctypes, so it would
+        # count them again
+        if ev.device_type == torch.autograd.DeviceType.CPU or getattr(ev, "is_user_annotation", False):
+            continue
         self_us = getattr(ev, "self_device_time_total", None)
         if self_us is None:
             self_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -1650,6 +1744,77 @@ def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs, g2_inputs,
           "verify_blob_batch_8_stages_ms": _verify_4844_stage_times(torch, ctx, blobs, comms, blob_proofs),
           "seconds": time.perf_counter() - t0})
     return calls
+
+
+PROVE_SPANS = ("fk20/h_poly_commitments", "fk20/proofs_g1_fft", "fk20/coset_evaluations", "fk20/batch_normalize")
+
+
+def phase_tracing(torch, ctx, blobs, out, calls):
+    """utils/tracing.py on the card: a prove B=8 inside device_trace holds
+    the four prover spans, each with CUDA kernel time under it (device ms
+    from the profiler's averages, and from the trace's GPU annotations);
+    a prove B=8 with TRACE_ENABLED prints the four span lines; both give
+    phase 3's bytes. Then prove B=1's host clock with the spans as they are
+    (tracing off) against the same prove with each span a null context,
+    interleaved, median of 5 each."""
+    import glob
+    import io
+    import tempfile
+
+    from rust_eth_kzg_tpu_torch.models import fk20
+    from rust_eth_kzg_tpu_torch.utils import tracing
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracing.device_trace(tmp) as prof:
+            traced = ctx.compute_cells_and_kzg_proofs_batch(blobs)
+            torch.cuda.synchronize()
+        check(traced == out, "prove B=8 inside device_trace: phase 3's bytes")
+        spans_ms = dict.fromkeys(PROVE_SPANS, 0.0)
+        for ev in prof.key_averages():
+            if ev.key in spans_ms:
+                us = getattr(ev, "device_time_total", None)
+                spans_ms[ev.key] += (us if us is not None else getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(traces) == 1, f"device_trace wrote one *.pt.trace.json: {traces}")
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+    host = sorted((e["ts"], e["name"]) for e in events
+                  if e.get("name") in PROVE_SPANS and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+    gpu_ms = dict.fromkeys(PROVE_SPANS, 0.0)
+    for e in events:
+        if e.get("name") in gpu_ms and e.get("cat") == "gpu_user_annotation":
+            gpu_ms[e["name"]] += e.get("dur", 0) / 1e3
+    check([name for _, name in host] == list(PROVE_SPANS), f"the trace holds the four prover spans in order: {host}")
+    check(all(spans_ms[n] > 0 or gpu_ms[n] > 0 for n in PROVE_SPANS),
+          f"each prover span has CUDA kernel time under it: {spans_ms}, {gpu_ms}")
+    printed = io.StringIO()
+    tracing.TRACE_ENABLED = True
+    try:
+        with contextlib.redirect_stdout(printed):
+            logged = ctx.compute_cells_and_kzg_proofs_batch(blobs)
+    finally:
+        tracing.TRACE_ENABLED = False
+    check(logged == out, "prove B=8 with KZG_TPU_TRACE on: phase 3's bytes")
+    lines = printed.getvalue().splitlines()
+    check([line.split(": ")[0] for line in lines] == [f"[kzg-tpu] {n}" for n in PROVE_SPANS]
+          and all(line.endswith(" ms") for line in lines), f"KZG_TPU_TRACE prints the four span lines: {lines}")
+    trace_ms = {line.split(": ")[0][len("[kzg-tpu] "):]: float(line.split(": ")[1][:-3]) for line in lines}
+    blob = [_random_blob(SEED + 10)]
+    with_spans, without = [], []
+    for _ in range(5):
+        with_spans.append(_host_ms(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blob), reps=1)[0])
+        saved = fk20.span
+        fk20.span = lambda name, device=None: contextlib.nullcontext()
+        try:
+            without.append(_host_ms(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blob), reps=1)[0])
+        finally:
+            fk20.span = saved
+    emit({"phase": "tracing", "spans_device_ms": spans_ms, "spans_gpu_annotation_ms": gpu_ms,
+          "trace_enabled_lines_ms": trace_ms, "prove_b1_median_ms": statistics.median(with_spans),
+          "prove_b1_runs_ms": with_spans, "prove_b1_no_spans_median_ms": statistics.median(without),
+          "prove_b1_no_spans_runs_ms": without, "prove_b1_phase8_median_ms": calls["prove_B1"]["median_ms"],
+          "seconds": time.perf_counter() - t0})
 
 
 def _timed_stages(torch):
@@ -1860,6 +2025,7 @@ def main() -> int:
         phase_mainnet_oracle(torch, api, C, device)
         calls = phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs, g2_inputs, mesh_launches,
                              mesh_timing)
+        phase_tracing(torch, ctx, blobs, out, calls)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

@@ -24,6 +24,7 @@ from ..ops import msm as M
 from ..ops import ntt
 from ..parallel import mesh as PM
 from ..utils import persist
+from ..utils.tracing import span
 
 FR = F.FR
 
@@ -212,11 +213,17 @@ class FK20Prover:
 
     def prove_from_poly(self, poly: torch.Tensor):
         """poly [L, B, poly_len] -> (proofs G1Affine [B, num_proofs],
-        cells [L, B, num_proofs, coset] in Montgomery form)."""
-        h = self._h_poly_commitments(poly)
-        proofs = self._proofs_from_h(h)
-        cells = self._coset_evaluations(poly)
-        return C.batch_normalize(proofs), cells
+        cells [L, B, num_proofs, coset] in Montgomery form); its four stages
+        are the JAX prover's tracing spans."""
+        with span("fk20/h_poly_commitments", self.device):
+            h = self._h_poly_commitments(poly)
+        with span("fk20/proofs_g1_fft", self.device):
+            proofs = self._proofs_from_h(h)
+        with span("fk20/coset_evaluations", self.device):
+            cells = self._coset_evaluations(poly)
+        with span("fk20/batch_normalize", self.device):
+            out = C.batch_normalize(proofs)
+        return out, cells
 
     def prove_from_data(self, data: torch.Tensor):
         """Blob scalars [L, B, poly_len] (Montgomery, bit-reversed evaluations)."""

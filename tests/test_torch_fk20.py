@@ -39,7 +39,7 @@ from rust_eth_kzg_tpu_torch.ops import field as F
 from rust_eth_kzg_tpu_torch.ops import msm as M
 from rust_eth_kzg_tpu_torch.ops import ntt
 from rust_eth_kzg_tpu_torch.utils import bls_host as B
-from rust_eth_kzg_tpu_torch.utils import convert
+from rust_eth_kzg_tpu_torch.utils import convert, trusted_setup
 
 # One intra-op thread: the plain versions run many small tensor ops, and
 # beside other busy processes (xdist workers, XLA compiles) a thread pool
@@ -233,7 +233,9 @@ def test_port_imports_nothing_of_jax():
                 assert root not in ("jax", "jaxlib", "rust_eth_kzg_tpu"), f"{path} imports {name}"
 
 
-def test_trusted_setup_copy_is_identical():
+def test_trusted_setup_copy_is_identical(tmp_path, monkeypatch):
+    monkeypatch.setattr(trusted_setup, "CACHE_DIR", str(tmp_path))  # default()'s cache, out of the tree
+
     def digest(path):
         with open(path, "rb") as fh:
             return hashlib.sha256(fh.read()).hexdigest()

@@ -294,3 +294,26 @@ def test_g2_on_the_card(device):
     for g, w in ((G2.add(on_card, q), G2.add(G2.points_to_device(pts, "cpu"), G2.points_to_device(pts[::-1], "cpu"))),
                  (G2.double(on_card), G2.double(G2.points_to_device(pts, "cpu")))):
         assert G2.points_from_device(g) == G2.points_from_device(w)
+
+
+def test_prove_spans_on_the_card(device, tmp_path):
+    """A mainnet prove B=1 inside tracing.device_trace: the JAX prover's four
+    span names, each with CUDA kernel time under it."""
+    from rust_eth_kzg_tpu_torch import DASContext
+    from rust_eth_kzg_tpu_torch.utils import tracing
+
+    spans = ["fk20/h_poly_commitments", "fk20/proofs_g1_fft", "fk20/coset_evaluations", "fk20/batch_normalize"]
+    ctx = DASContext(device=device)
+    rng = np.random.default_rng(60)
+    blob = b"".join((int(v) ** 5 % R_SCALAR).to_bytes(32, "big") for v in rng.integers(1, 2**62, size=4096))
+    want = ctx.compute_cells_and_kzg_proofs(blob)
+    with tracing.device_trace(str(tmp_path)) as prof:
+        got = ctx.compute_cells_and_kzg_proofs(blob)
+        torch.cuda.synchronize()
+    assert got == want
+    device_us = {}
+    for ev in prof.key_averages():
+        if ev.key in spans:
+            device_us[ev.key] = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+    assert set(device_us) == set(spans) and all(us > 0 for us in device_us.values()), device_us
+    assert len(list(tmp_path.glob("*.pt.trace.json"))) == 1
