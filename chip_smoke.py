@@ -131,10 +131,11 @@ per phase:
                      (median of 3) and phase 5c's two mesh proves (median
                      of 3 in each rank; no scaling figure: both ranks share
                      one card); then utils/tracing.py: a prove B=8 inside
-                     device_trace holds the four prover spans in order,
-                     each with CUDA time under it, a prove B=8 with
-                     TRACE_ENABLED prints their four lines, both byte-equal
-                     to phase 3; prove B=1's host clock with the spans and
+                     device_trace holds its root span and the four prover
+                     spans in order, each with CUDA time under it, a prove
+                     B=8 with TRACE_ENABLED prints its span lines (stages,
+                     then the root), both byte-equal to phase 3; prove B=1
+                     and recover B=8 by the host clock with the spans and
                      with null spans, interleaved.
 Then the per-kernel summary line, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}. Any failed check exits nonzero.
@@ -1747,21 +1748,43 @@ def phase_timing(torch, K, ctx, card, out, comms, blobs, blob_proofs, g2_inputs,
 
 
 PROVE_SPANS = ("fk20/h_poly_commitments", "fk20/proofs_g1_fft", "fk20/coset_evaluations", "fk20/batch_normalize")
+# a prove's spans in exit order: its stages, then its root
+PROVE_CALL_SPANS = ("das/blob_codec", *PROVE_SPANS, "das/cells_bytes", "das/proofs_bytes",
+                    "das/compute_cells_and_kzg_proofs_batch")
+
+
+def _span_ab(torch, fn, pairs=5):
+    """Host-clock ms of fn with the spans as they are (tracing off) and with
+    every span's record_function a null context, interleaved: (with, without)
+    runs. The decorator spans are bound at import, so the profiler scope
+    itself is what is nulled."""
+    with_spans, without = [], []
+    saved = torch.profiler.record_function
+    for _ in range(pairs):
+        with_spans.append(_host_ms(torch, fn, reps=1)[0])
+        torch.profiler.record_function = lambda name, args=None: contextlib.nullcontext()
+        try:
+            without.append(_host_ms(torch, fn, reps=1)[0])
+        finally:
+            torch.profiler.record_function = saved
+    return with_spans, without
 
 
 def phase_tracing(torch, ctx, blobs, out, calls):
     """utils/tracing.py on the card: a prove B=8 inside device_trace holds
-    the four prover spans, each with CUDA kernel time under it (device ms
-    from the profiler's averages, and from the trace's GPU annotations);
-    a prove B=8 with TRACE_ENABLED prints the four span lines; both give
-    phase 3's bytes. Then prove B=1's host clock with the spans as they are
-    (tracing off) against the same prove with each span a null context,
-    interleaved, median of 5 each."""
+    its root span and the four prover spans, each prover span with CUDA
+    kernel time under it (device ms from the profiler's averages, and from
+    the trace's GPU annotations); a prove B=8 with TRACE_ENABLED prints its
+    span lines in exit order (stages, then the root); both give phase 3's
+    bytes. Then prove B=1 and recover B=8 by the host clock with the spans
+    as they are (tracing off) against the same call with every span a null
+    context, interleaved, 5 pairs each."""
     import glob
     import io
     import tempfile
 
-    from rust_eth_kzg_tpu_torch.models import fk20
+    import numpy as np
+
     from rust_eth_kzg_tpu_torch.utils import tracing
 
     t0 = time.perf_counter()
@@ -1780,12 +1803,15 @@ def phase_tracing(torch, ctx, blobs, out, calls):
         with open(traces[0]) as fh:
             events = json.load(fh)["traceEvents"]
     host = sorted((e["ts"], e["name"]) for e in events
-                  if e.get("name") in PROVE_SPANS and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
+                  if e.get("name") in PROVE_CALL_SPANS and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation")
     gpu_ms = dict.fromkeys(PROVE_SPANS, 0.0)
     for e in events:
         if e.get("name") in gpu_ms and e.get("cat") == "gpu_user_annotation":
             gpu_ms[e["name"]] += e.get("dur", 0) / 1e3
-    check([name for _, name in host] == list(PROVE_SPANS), f"the trace holds the four prover spans in order: {host}")
+    check([name for _, name in host if name in PROVE_SPANS] == list(PROVE_SPANS)
+          and [name for _, name in host][0] == PROVE_CALL_SPANS[-1]
+          and sorted(name for _, name in host) == sorted(PROVE_CALL_SPANS),
+          f"the trace holds the prove's root span, then its stages with the four prover spans in order: {host}")
     check(all(spans_ms[n] > 0 or gpu_ms[n] > 0 for n in PROVE_SPANS),
           f"each prover span has CUDA kernel time under it: {spans_ms}, {gpu_ms}")
     printed = io.StringIO()
@@ -1797,24 +1823,26 @@ def phase_tracing(torch, ctx, blobs, out, calls):
         tracing.TRACE_ENABLED = False
     check(logged == out, "prove B=8 with KZG_TPU_TRACE on: phase 3's bytes")
     lines = printed.getvalue().splitlines()
-    check([line.split(": ")[0] for line in lines] == [f"[kzg-tpu] {n}" for n in PROVE_SPANS]
-          and all(line.endswith(" ms") for line in lines), f"KZG_TPU_TRACE prints the four span lines: {lines}")
+    check([line.split(": ")[0] for line in lines] == [f"[kzg-tpu] {n}" for n in PROVE_CALL_SPANS]
+          and all(line.endswith(" ms") for line in lines), f"KZG_TPU_TRACE prints the prove's span lines: {lines}")
     trace_ms = {line.split(": ")[0][len("[kzg-tpu] "):]: float(line.split(": ")[1][:-3]) for line in lines}
     blob = [_random_blob(SEED + 10)]
-    with_spans, without = [], []
-    for _ in range(5):
-        with_spans.append(_host_ms(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blob), reps=1)[0])
-        saved = fk20.span
-        fk20.span = lambda name, device=None: contextlib.nullcontext()
-        try:
-            without.append(_host_ms(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blob), reps=1)[0])
-        finally:
-            fk20.span = saved
+    prove_with, prove_without = _span_ab(torch, lambda: ctx.compute_cells_and_kzg_proofs_batch(blob))
+    rng = np.random.default_rng(SEED + 301)
+    batches = []
+    for cells, _ in out:
+        idx = _kept(rng, 64)
+        batches.append((idx, [cells[i] for i in idx]))
+    recover_with, recover_without = _span_ab(torch, lambda: ctx.recover_cells_and_kzg_proofs_batch(batches))
+    check(ctx.recover_cells_and_kzg_proofs_batch(batches) == out, "recover B=8 after the span A/B: phase 3's bytes")
     emit({"phase": "tracing", "spans_device_ms": spans_ms, "spans_gpu_annotation_ms": gpu_ms,
-          "trace_enabled_lines_ms": trace_ms, "prove_b1_median_ms": statistics.median(with_spans),
-          "prove_b1_runs_ms": with_spans, "prove_b1_no_spans_median_ms": statistics.median(without),
-          "prove_b1_no_spans_runs_ms": without, "prove_b1_phase8_median_ms": calls["prove_B1"]["median_ms"],
-          "seconds": time.perf_counter() - t0})
+          "trace_enabled_lines_ms": trace_ms, "prove_b1_median_ms": statistics.median(prove_with),
+          "prove_b1_runs_ms": prove_with, "prove_b1_no_spans_median_ms": statistics.median(prove_without),
+          "prove_b1_no_spans_runs_ms": prove_without, "prove_b1_phase8_median_ms": calls["prove_B1"]["median_ms"],
+          "recover_b8_median_ms": statistics.median(recover_with), "recover_b8_runs_ms": recover_with,
+          "recover_b8_no_spans_median_ms": statistics.median(recover_without),
+          "recover_b8_no_spans_runs_ms": recover_without,
+          "recover_b8_phase8_median_ms": calls["recover_B8"]["median_ms"], "seconds": time.perf_counter() - t0})
 
 
 def _timed_stages(torch):

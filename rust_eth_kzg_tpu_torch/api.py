@@ -37,6 +37,7 @@ from .utils import bls_host as bls
 from .utils import fiat_shamir as fs
 from .utils import persist
 from .utils import serialization as ser
+from .utils.tracing import span
 from .utils.trusted_setup import TrustedSetup
 
 FR = F.FR
@@ -358,11 +359,13 @@ class DASContext(_BlobContext):
     def compute_cells_and_kzg_proofs(self, blob: bytes):
         return self.compute_cells_and_kzg_proofs_batch([blob])[0]
 
+    @span("das/compute_cells_and_kzg_proofs_batch")
     def compute_cells_and_kzg_proofs_batch(self, blobs: list[bytes]):
         """B blobs -> list of B (cells, proofs) tuples, proved in one batch."""
         if not blobs:
             raise SerializationError("batch contains no blobs")
-        data = self._data(blobs)
+        with span("das/blob_codec"):
+            data = self._data(blobs)
         mesh = self.mesh
         if mesh is None:
             proofs_aff, cells = self.prover.prove_from_data(data)
@@ -379,9 +382,12 @@ class DASContext(_BlobContext):
     def _cells_and_proofs(self, proofs_aff: C.G1Affine, cells: torch.Tensor):
         """Fetch: cells [8, B, K, M] (Montgomery) and proofs [B, K] -> list of
         B (cells, proofs) tuples of bytes."""
-        cells_std = F.from_mont(FR, cells).cpu().numpy()
         b, k = cells.shape[1], self.config.num_proofs
-        return list(zip(cells_bytes_from_std(cells_std), proofs_bytes(proofs_aff, b, k)))
+        with span("das/cells_bytes"):
+            cells_bytes = cells_bytes_from_std(F.from_mont(FR, cells).cpu().numpy())
+        with span("das/proofs_bytes"):
+            proofs = proofs_bytes(proofs_aff, b, k)
+        return list(zip(cells_bytes, proofs))
 
     def compute_cells(self, blob: bytes):
         cells = self.prover.extend_from_data(self._data([blob]))
@@ -390,6 +396,7 @@ class DASContext(_BlobContext):
     def recover_cells_and_kzg_proofs(self, cell_indices: list[int], cells: list[bytes]):
         return self.recover_cells_and_kzg_proofs_batch([(cell_indices, cells)])[0]
 
+    @span("das/recover_cells_and_kzg_proofs_batch")
     def recover_cells_and_kzg_proofs_batch(self, batches):
         """[(cell_indices, cells), ...] -> [(cells, proofs), ...]: every blob
         recovered from at least half of its cells (each with its own erasure
@@ -400,17 +407,22 @@ class DASContext(_BlobContext):
         return self.recovery_outputs(ok, proofs_aff, cells)
 
     def upload(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
-        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        with span("das/upload", self.device):
+            return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
     def recovery_outputs(self, ok: torch.Tensor, proofs_aff: C.G1Affine, cells: torch.Tensor):
         """The fetch of a recovery: every blob's degree check, then its cells
         and proofs as bytes."""
-        ok = ok.cpu().numpy()
-        if not ok.all():
-            bad = [i for i, v in enumerate(ok) if not v]
-            raise RecoveryError(f"recovered polynomial has invalid degree for batch entries {bad} (corrupt input cells?)")
+        with span("das/degree_check"):
+            ok = ok.cpu().numpy()
+            if not ok.all():
+                bad = [i for i, v in enumerate(ok) if not v]
+                raise RecoveryError(
+                    f"recovered polynomial has invalid degree for batch entries {bad} (corrupt input cells?)"
+                )
         return self._cells_and_proofs(proofs_aff, cells)
 
+    @span("das/recovery_arrays")
     def recovery_arrays(self, batches):
         """The host part of a recovery: each blob's checks and erasure layout
         -> (codewords [8, B, ext], small vanishing polynomials [8, B, nz]),
@@ -424,6 +436,7 @@ class DASContext(_BlobContext):
             z_stds.append(self.rs.construct_vanishing_poly_small(missing))
         return np.stack(e_stds, axis=1), np.stack(z_stds, axis=1)
 
+    @span("das/verify_cell_kzg_proof_batch")
     def verify_cell_kzg_proof_batch(self, commitments: list[bytes], cell_indices: list[int],
                                     cells: list[bytes], proofs: list[bytes]) -> None:
         """Returns None if every cell proof verifies; raises VerifierError on
@@ -433,6 +446,7 @@ class DASContext(_BlobContext):
         if args is not None:
             self.verifier.verify(*args)
 
+    @span("das/verify_inputs")
     def verify_inputs(self, commitments, cell_indices, cells, proofs):
         """The host checks of a verify, before any point is decompressed:
         commitments deduplicated by bytes in first-seen order, the length and

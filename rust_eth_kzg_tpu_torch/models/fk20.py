@@ -253,6 +253,7 @@ def recover_and_prove(rs, prover: FK20Prover, e_std: torch.Tensor, z_small: torc
     num_proofs, coset] Montgomery); a blob whose ok is False failed the
     degree check and its outputs are meaningless.
     """
-    poly, ok = rs.recover_polynomial_coefficient(e_std, z_small)
+    with span("rs/decode", prover.device):
+        poly, ok = rs.recover_polynomial_coefficient(e_std, z_small)
     proofs, cells = prover.prove_from_poly(poly)
     return ok, proofs, cells

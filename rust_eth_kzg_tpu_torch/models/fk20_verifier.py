@@ -10,7 +10,9 @@ verifier's SRS. Fiat-Shamir (by the caller) and the closing two-pairing check
 (native library) stay on the host. Tensors move plainly: one upload of each
 input, one fetch of the four points and the flags. `verify` runs three
 stages, `prepare` (host, upload), `verify_device` and `check` (fetch,
-flags, pairing), which a profile can time one by one.
+flags, pairing); each is a span (`verifier/prepare`, `verifier/check`, and
+in `verify_device` `verifier/decompress`, `verifier/lincomb`,
+`verifier/interpolate`) that a profile times one by one.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..ops import ntt
 from ..utils import bls_host as bls
 from ..utils import fiat_shamir as fs
 from ..utils import native
+from ..utils.tracing import span
 from . import cosets
 
 FR = F.FR
@@ -84,6 +87,7 @@ class FK20Verifier:
         inputs = self.prepare(unique_commitment_bytes, commitment_indices, coset_indices, coset_evals_std, proof_bytes, r)
         self.check(inputs, verify_device(self, *inputs.tensors))
 
+    @span("verifier/prepare")
     def prepare(self, unique_commitment_bytes, commitment_indices, coset_indices, coset_evals_std, proof_bytes, r):
         """Host stage: byte checks, padding, the three scalar sets, and the
         upload of `verify_device`'s inputs."""
@@ -128,6 +132,7 @@ class FK20Verifier:
         )
         return VerifyInputs(tensors, n_comm, batch, padded)
 
+    @span("verifier/check")
     def check(self, inputs: "VerifyInputs", outputs) -> None:
         """Host stage: fetch the flags and raise for a malformed point (all
         commitments before all proofs, as the reference orders them), then the
@@ -166,13 +171,20 @@ def verify_device(verifier: FK20Verifier, xs, sort_bits, inf, scal3, evals_std, 
     [2P]; in_subgroup [2P]).
     """
     padded = cidx.shape[0]
-    pts, on_curve, in_sub = D.decompress_g1(xs, sort_bits, inf)
-    comms = C._map(lambda c: c[:, :padded], pts)
-    proofs = C._map(lambda c: c[:, padded:], pts)
+    dev = verifier.device
+    with span("verifier/decompress", dev):
+        pts, on_curve, in_sub = D.decompress_g1(xs, sort_bits, inf)
+    with span("verifier/lincomb", dev):
+        comms = C._map(lambda c: c[:, :padded], pts)
+        proofs = C._map(lambda c: c[:, padded:], pts)
+        pts3 = C._map(lambda cp, cm: torch.stack((cp, cp, cm), dim=1), proofs, comms)  # [12, 3, P]
+        sums3 = M.lincomb(pts3, scal3)  # G1 [3]
+    with span("verifier/interpolate", dev):
+        return _interpolate(verifier, sums3, evals_std, r_mont, cidx), on_curve, in_sub
 
-    pts3 = C._map(lambda cp, cm: torch.stack((cp, cp, cm), dim=1), proofs, comms)  # [12, 3, P]
-    sums3 = M.lincomb(pts3, scal3)  # G1 [3]
 
+def _interpolate(verifier: FK20Verifier, sums3: C.G1, evals_std, r_mont, cidx) -> C.G1Affine:
+    """The interpolation commitment beside the three sums, all four affine."""
     # interpolate each cell over its coset: un-bit-reverse, inverse NTT,
     # scale row j by h_k^-j, weight by r^i; then a tree sum over the cells
     evals = ntt.bit_reverse_permutation(F.to_mont(FR, evals_std), dim=-1)
@@ -192,4 +204,4 @@ def verify_device(verifier: FK20Verifier, xs, sort_bits, inf, scal3, evals_std, 
     comm_interp = M.fixed_base_msm(verifier.commit_tables, interp[:, :1].contiguous())  # G1 [1]
 
     all4 = C._map(lambda s, c: torch.cat((s, c), dim=-1), sums3, comm_interp)
-    return C.batch_normalize(all4), on_curve, in_sub
+    return C.batch_normalize(all4)

@@ -1,13 +1,29 @@
 """Tracing and profiling hooks: the counterpart of the JAX package's
 `utils/tracing.py`, in torch's idiom.
 
-`span(name)` is a named `torch.profiler.record_function` scope: the name
-shows in any torch.profiler trace, with the CUDA kernels launched inside it
-under it. With `KZG_TPU_TRACE=1` in the environment at import (or
-`TRACE_ENABLED` set to True) a span also prints `[kzg-tpu] <name>: <ms> ms`
-at its exit: the device time between two CUDA events around the block on a
-CUDA device (the exit waits for the end event), the host clock elsewhere.
-With tracing off it records no event and never synchronizes.
+`span(name)` is a named `torch.profiler.record_function` scope: whenever a
+profiler is on, whatever `KZG_TPU_TRACE` says, the span is an event of its
+trace, on the clock of the CUDA kernels and copies launched inside it.
+With `KZG_TPU_TRACE=1` in the environment at import (or `TRACE_ENABLED` set
+to True) a span also prints `[kzg-tpu] <name>: <ms> ms` at its exit: a
+device stage (`device` a CUDA device) the time between two CUDA events
+around the block (the exit waits for the end event), a host stage the host
+clock. Without a profiler and with `KZG_TPU_TRACE` off a span costs one
+`record_function` enter and exit and never synchronizes. A span closes,
+and prints, when its block raises. `span(name)` also decorates a function.
+
+The spans of the three PeerDAS calls (root, then its stages in order; a
+stage with a device is timed on the device):
+- `das/compute_cells_and_kzg_proofs_batch`: `das/blob_codec`, the prover's
+  `fk20/h_poly_commitments`, `fk20/proofs_g1_fft`,
+  `fk20/coset_evaluations`, `fk20/batch_normalize` (device),
+  `das/cells_bytes`, `das/proofs_bytes`;
+- `das/recover_cells_and_kzg_proofs_batch`: `das/recovery_arrays`,
+  `das/upload` (device), `rs/decode` (device), the four `fk20/*`,
+  `das/degree_check`, `das/cells_bytes`, `das/proofs_bytes`;
+- `das/verify_cell_kzg_proof_batch`: `das/verify_inputs`,
+  `verifier/prepare`, `verifier/decompress`, `verifier/lincomb`,
+  `verifier/interpolate` (device), `verifier/check`.
 
 `device_trace(logdir)` profiles a region (host activity, and CUDA activity
 where CUDA is available) and writes a `*.pt.trace.json` that TensorBoard

@@ -317,3 +317,72 @@ def test_prove_spans_on_the_card(device, tmp_path):
             device_us[ev.key] = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
     assert set(device_us) == set(spans) and all(us > 0 for us in device_us.values()), device_us
     assert len(list(tmp_path.glob("*.pt.trace.json"))) == 1
+
+
+def test_verify_and_recover_spans_on_the_card(device, tmp_path):
+    """A mainnet verify of one 6-blob transaction (768 cells) and a mainnet
+    recovery of 2 blobs from 64 of their 128 cells inside
+    tracing.device_trace: every stage span lies within its call's root span,
+    the decompression kernel runs under verifier/decompress and Pippenger's
+    g1_double and g1_add under verifier/lincomb, and the outputs are those of
+    the untraced calls."""
+    import json
+
+    from rust_eth_kzg_tpu_torch import DASContext
+    from rust_eth_kzg_tpu_torch.utils import tracing
+
+    stages = {
+        "das/verify_cell_kzg_proof_batch": ["das/verify_inputs", "verifier/prepare", "verifier/decompress",
+                                            "verifier/lincomb", "verifier/interpolate", "verifier/check"],
+        "das/recover_cells_and_kzg_proofs_batch": [
+            "das/recovery_arrays", "das/upload", "rs/decode", "fk20/h_poly_commitments", "fk20/proofs_g1_fft",
+            "fk20/coset_evaluations", "fk20/batch_normalize", "das/degree_check", "das/cells_bytes",
+            "das/proofs_bytes"],
+    }
+    ctx = DASContext(device=device)
+    rng = np.random.default_rng(61)
+    blobs = [b"".join((int(v) ** 5 % R_SCALAR).to_bytes(32, "big") for v in rng.integers(1, 2**62, size=4096))
+             for _ in range(6)]
+    proved = ctx.compute_cells_and_kzg_proofs_batch(blobs)
+    comms = [ctx.blob_to_kzg_commitment(b) for b in blobs]
+    ks = range(128)
+    verify_args = ([comms[b] for b in range(6) for _ in ks], [k for _ in range(6) for k in ks],
+                   [proved[b][0][k] for b in range(6) for k in ks], [proved[b][1][k] for b in range(6) for k in ks])
+    keep = list(range(0, 128, 2))
+    recover_args = ([(keep, [cells[k] for k in keep]) for cells, _ in proved[:2]],)
+    assert ctx.verify_cell_kzg_proof_batch(*verify_args) is None
+    want = ctx.recover_cells_and_kzg_proofs_batch(*recover_args)
+    assert want == proved[:2]
+    with tracing.device_trace(str(tmp_path)):
+        verdict = ctx.verify_cell_kzg_proof_batch(*verify_args)
+        got = ctx.recover_cells_and_kzg_proofs_batch(*recover_args)
+        torch.cuda.synchronize()
+    assert verdict is None and got == want
+
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    for root, leaves in stages.items():
+        assert len(spans.get(root, [])) == 1, root
+        (lo, hi) = spans[root][0]
+        for leaf in leaves:
+            assert spans.get(leaf) and all(lo <= s and e <= hi for s, e in spans[leaf]), (root, leaf)
+    launched = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launched[corr] = e["ts"]
+
+    def launches_of(kernel):
+        out = [launched.get(e["args"].get("correlation")) for e in events
+               if e.get("cat") == "kernel" and kernel + "(" in e["name"]]
+        assert out and None not in out, kernel
+        return out
+
+    for kernel, span in (("g1_decompress_kernel", "verifier/decompress"), ("g1_double_kernel", "verifier/lincomb"),
+                         ("g1_add_kernel", "verifier/lincomb")):
+        assert all(any(s <= t <= e for s, e in spans[span]) for t in launches_of(kernel)), kernel
